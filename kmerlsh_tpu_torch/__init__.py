@@ -1,0 +1,9 @@
+"""kmerlsh_tpu_torch: the kmerlsh pipeline on PyTorch, with hand-written
+CUDA kernels for an NVIDIA Hopper card.
+
+Modes K (k-mer counting) and B (count matrix) run on the host; mode C
+(annealed LSH clustering, single batch) runs on a torch device: the CUDA
+kernels of :mod:`kmerlsh_tpu_torch.kernels` on a card, their plain PyTorch
+versions on the CPU. ``kmerlsh_tpu`` (JAX) is the reference this package is
+tested against; this package never imports jax.
+"""

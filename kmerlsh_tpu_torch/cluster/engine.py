@@ -1,0 +1,284 @@
+"""LSH clustering engine on PyTorch tensors (port of
+kmerlsh_tpu/cluster/engine.py, chain merge only).
+
+A session keeps the cluster profiles sample-major (values f32 [S, M]) with
+sizes and stable slot ids (int32 [M]) and a parent forest over the input
+rows (int32 [cap0]). Each iteration, run eagerly one at a time:
+
+  1. ``lsh_keys`` kernel: projections on the iteration's hyperplanes, the h
+     bucket bits and the secondary projection quantized into one int32 key;
+  2. ``torch.sort(stable=True)`` of the key, and the ``permute_state``
+     kernel moving the state into sorted order;
+  3. ``chain_collapse`` kernel: neighbour chains collapse onto their last
+     position; the dying slots are folded into the parent forest in place.
+
+After every iteration the host reads one int, the alive count: the sort put
+every dead column behind the alive ones, so the next iteration runs on the
+first ``n_alive_before`` columns only (a view, no copy). Merge decisions do
+not depend on capacity (the quantization range is taken over alive rows
+only), so the result is the same at any capacity. Once per session the
+``finalize`` kernel groups the rows by root.
+
+State is float32 throughout. The reference's TPU workarounds are not
+carried over: f16 sort payloads, f16 pulls, scanned chunk programs and
+buffer donation. Its hyperplanes are reproduced bit for bit up to a few
+ulp (:mod:`kmerlsh_tpu_torch.ops.rng`); a ``hyperplanes`` hook takes
+planes from elsewhere (``it → [S, 31]``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from kmerlsh_tpu_torch import kernels
+from kmerlsh_tpu_torch.cluster.groups import Groups
+from kmerlsh_tpu_torch.ops import lsh, rng, xlamath
+
+# wall-clock split of the most recent cluster_counts/cluster session:
+#   device_seconds — iterations and finalize, dispatch to the host's read
+#                    of their result
+#   pull_seconds   — device→host copies of the finalize result
+#   pull_bytes     — their size;  programs — (name, seconds) per step;
+#   clusters       — the session's cluster count
+LAST_SESSION: dict = {}
+
+Hyperplanes = Callable[[int], "np.ndarray | torch.Tensor"]
+
+
+def _active_h_of(n_alive: int) -> int:
+    """h = floor(log2(float32(max(n_alive, 2)))) clipped to [1, H_MAX],
+    with the reference's float32 log2."""
+    x = torch.tensor([float(max(n_alive, 2))], dtype=torch.float32)
+    h = int(torch.floor(xlamath.log2(x)).item())
+    return min(max(h, 1), lsh.H_MAX)
+
+
+def _active_h(sizes: torch.Tensor) -> int:
+    return _active_h_of(int((sizes > 0).sum()))
+
+
+def chain_collapse(values_t, sizes, keys, proj, threshold: float,
+                   merged_into=None, cur_slot=None, h: int | None = None,
+                   parent=None):
+    """Sort the state by the combined key of (keys, proj) and collapse every
+    chain. Same contract as the reference: returns (values_t, sizes,
+    merged_into, cur_slot) in sorted position order."""
+    m = values_t.shape[1]
+    if cur_slot is None:
+        cur_slot = torch.arange(m, dtype=torch.int32, device=values_t.device)
+    combined = lsh.combined_sort_key(keys, proj, sizes, h)
+    skey, order = torch.sort(combined, stable=True)
+    svt, ssize, scs = kernels.permute_state(values_t, sizes, cur_slot, order)
+    smi = None if merged_into is None else merged_into[order]
+    new_vt, new_size, new_scs, new_mi = kernels.chain_collapse(
+        svt, ssize, scs, skey, threshold, h, smi, parent)
+    return new_vt, new_size, new_mi, new_scs
+
+
+def _one_iteration(values_t, sizes, slots, parent, hyperplanes, threshold,
+                   h: int):
+    """One LSH iteration: (values_t, sizes, slots) in sorted order, with the
+    merges folded into ``parent`` in place."""
+    key, _ = kernels.lsh_keys(values_t, sizes, hyperplanes, h)
+    skey, order = torch.sort(key, stable=True)
+    svt, ssize, sslots = kernels.permute_state(values_t, sizes, slots, order)
+    new_vt, new_size, new_slots, _ = kernels.chain_collapse(
+        svt, ssize, sslots, skey, threshold, h, None, parent)
+    return new_vt, new_size, new_slots
+
+
+def compact_sort(values_t, sizes, slots):
+    """Alive-first stable compaction: a stable sort on ``sizes == 0`` and
+    the same permute as an iteration."""
+    dead = (sizes == 0).to(torch.int32)
+    order = torch.sort(dead, stable=True).indices
+    return kernels.permute_state(values_t, sizes, slots, order)
+
+
+def _finalize_grouped(values_t, sizes, slots, parent):
+    """Root resolution and membership grouping (``finalize`` kernel):
+    (flat members, lens, sizes, centroids [S, fc]); see kernels.finalize."""
+    return kernels.finalize(values_t.contiguous(), sizes, slots, parent)
+
+
+def state_from_numpy(values_t, sizes, slots, parent, device):
+    """Session state pulled from the reference (numpy) as this engine's
+    tensors on ``device``."""
+    dev = torch.device(device)
+    return (torch.tensor(np.asarray(values_t, np.float32), device=dev),
+            torch.tensor(np.asarray(sizes, np.int32), device=dev),
+            torch.tensor(np.asarray(slots, np.int32), device=dev),
+            torch.tensor(np.asarray(parent, np.int32), device=dev))
+
+
+def _planes_fn(seed: int, s: int, hook: Hyperplanes | None, device):
+    def planes(it: int) -> torch.Tensor:
+        p = hook(it) if hook is not None else rng.draw_hyperplanes(seed, it, s)
+        if not isinstance(p, torch.Tensor):
+            p = torch.from_numpy(np.array(p, np.float32))
+        return p.to(device, torch.float32)
+    return planes
+
+
+def _record(name: str, seconds: float) -> None:
+    LAST_SESSION["device_seconds"] += seconds
+    LAST_SESSION["programs"].append((name, round(seconds, 4)))
+
+
+def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
+                   sync):
+    """Run every iteration of ``thr``, then finalize and pull. Returns
+    (centroids [K, S], sizes [K], members)."""
+    na = int((sizes > 0).sum())
+    for it, threshold in enumerate(thr):
+        if na == 0:
+            break
+        h = _active_h_of(na)
+        cap = values_t.shape[1]
+        t0 = time.perf_counter()
+        values_t, sizes, slots = _one_iteration(
+            values_t, sizes, slots, parent, planes(it), float(threshold), h)
+        na_next = int((sizes > 0).sum())            # the one read per iteration
+        _record(f"iter[{it}]@{cap}", time.perf_counter() - t0)
+        # alive columns now all sit before na: the rest is dead tail
+        values_t, sizes, slots = values_t[:, :na], sizes[:na], slots[:na]
+        na = na_next
+        if verbose:
+            print(f"[torch] iter {it + 1}: {na} clusters")
+
+    t0 = time.perf_counter()
+    values_t, sizes, slots = compact_sort(values_t, sizes, slots)
+    flat, lens, csizes, cents = _finalize_grouped(
+        values_t[:, :na], sizes[:na], slots[:na], parent)
+    sync()
+    _record(f"finalize@{na}", time.perf_counter() - t0)
+    LAST_SESSION["clusters"] = na
+
+    t0 = time.perf_counter()
+    lens, csizes, cents = lens.cpu(), csizes.cpu(), cents.cpu()
+    offs = np.concatenate([[0], np.cumsum(lens.numpy(), dtype=np.int64)])
+    flat = flat[:int(offs[-1])].cpu()
+    LAST_SESSION["pull_seconds"] += time.perf_counter() - t0
+    LAST_SESSION["pull_bytes"] += sum(t.numel() * t.element_size()
+                                      for t in (lens, csizes, cents, flat))
+    return (np.ascontiguousarray(cents.numpy().T),
+            csizes.numpy().astype(np.int64),
+            Groups(flat.numpy().astype(np.int64), offs))
+
+
+def _sync_for(device: torch.device):
+    if device.type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
+
+
+def _reset_session() -> None:
+    LAST_SESSION.clear()
+    LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
+                        programs=[])
+
+
+def upload_counts(counts: np.ndarray, device) -> tuple[torch.Tensor, int]:
+    """Place a uint16 [S, N] count matrix on ``device``. Returns (tensor
+    [S, N], N); no capacity padding is needed."""
+    arr = np.ascontiguousarray(counts, dtype=np.uint16)
+    if not arr.flags.writeable:      # torch.from_numpy needs a writable array
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device), counts.shape[1]
+
+
+def _empty(s: int):
+    return (np.zeros((0, s), np.float32), np.zeros(0, np.int64),
+            Groups(np.empty(0, np.int64), np.zeros(1, np.int64)))
+
+
+def cluster_counts(
+    counts,                        # uint16 [S, N] numpy, or a tensor
+    v_kmers: np.ndarray,           # f32 [S] per-sample coverage offsets
+    thresholds: np.ndarray,        # f32 [I] anneal schedule (incl. init pass)
+    seed: int = 0,
+    verbose: bool = False,
+    n: int | None = None,          # real column count of a padded tensor
+    device=None,
+    hyperplanes: Hyperplanes | None = None,
+):
+    """Single-batch mode C: abundance transform, the schedule's iterations,
+    finalize. A tensor ``counts`` runs where it lies (columns past ``n``
+    must be zero: they are filtered out); a numpy matrix is uploaded to
+    ``device``. Returns (centroids [K, S], sizes [K], members) ordered by
+    smallest member id."""
+    if isinstance(counts, torch.Tensor):
+        dev = counts.device
+        if n is not None and n > counts.shape[1]:
+            raise ValueError(f"n = {n} exceeds the {counts.shape[1]} columns")
+    else:
+        if device is None:
+            raise ValueError("pass device= for a numpy count matrix")
+        dev = torch.device(device)
+        if counts.shape[1] == 0:
+            return _empty(counts.shape[0])
+        counts, n = upload_counts(counts, dev)
+    S, cap0 = counts.shape
+    thr = np.asarray(thresholds, np.float32)
+    v = torch.as_tensor(np.asarray(v_kmers, np.float32), device=dev)
+    sync = _sync_for(dev)
+    _reset_session()
+    t0 = time.perf_counter()
+    values_t, sizes = kernels.abundance_transform(counts, v)
+    slots = torch.arange(cap0, dtype=torch.int32, device=dev)
+    parent = torch.arange(cap0, dtype=torch.int32, device=dev)
+    sync()
+    _record(f"transform@{cap0}", time.perf_counter() - t0)
+    return _drive_session(values_t, sizes, slots, parent, thr,
+                          _planes_fn(seed, S, hyperplanes, dev), verbose,
+                          sync)
+
+
+def cluster(
+    values,
+    sizes=None,
+    min_similarity: float = 0.8,
+    iterations: int = 100,
+    seed: int = 0,
+    verbose: bool = False,
+    thresholds: np.ndarray | None = None,
+    device=None,
+    hyperplanes: Hyperplanes | None = None,
+):
+    """Cluster rows of ``values`` [N, S] with the annealed threshold
+    0.95 → min_similarity over ``iterations`` (or an explicit
+    ``thresholds`` schedule). Rows of size 0 are filtered. Returns
+    (centroids [K, S], sizes [K], members) ordered by smallest member id."""
+    if isinstance(values, torch.Tensor):
+        dev = values.device
+        vt = values.T.to(torch.float32)
+    else:
+        if device is None:
+            raise ValueError("pass device= for numpy values")
+        dev = torch.device(device)
+        vt = torch.as_tensor(np.asarray(values, np.float32).T, device=dev)
+    s, n = vt.shape
+    if n == 0:
+        return _empty(s)
+    vt = vt.contiguous()
+    if sizes is None:
+        sz = torch.ones(n, dtype=torch.int32, device=dev)
+    else:
+        if not isinstance(sizes, torch.Tensor):
+            sizes = torch.from_numpy(np.array(sizes, np.int32))
+        sz = sizes.to(dev, torch.int32).contiguous()
+    if thresholds is None:
+        sim_step = (0.95 - min_similarity) / iterations
+        thr = (0.95 - sim_step * np.arange(iterations)).astype(np.float32)
+    else:
+        thr = np.asarray(thresholds, np.float32)
+    _reset_session()
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    parent = torch.arange(n, dtype=torch.int32, device=dev)
+    return _drive_session(vt, sz, slots, parent, thr,
+                          _planes_fn(seed, s, hyperplanes, dev), verbose,
+                          _sync_for(dev))
