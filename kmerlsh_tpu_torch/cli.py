@@ -2,8 +2,9 @@
 kmerlsh_tpu/cli.py (flag-compatible with the reference ``kmerLSH``) plus
 ``--device``.
 
-Modes K, B and C run; mode E, the out-of-core rounds and multi-process runs
-are refused with an error until they are ported.
+Modes K, B, C and E run, clustering and testing on ``--device``; the
+out-of-core rounds and multi-process runs are refused with an error until
+they are ported.
 """
 
 from __future__ import annotations
@@ -73,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run here")
     p.add_argument("--read-scorer",
                    choices=["auto", "host", "native", "device"],
-                   default=d.read_scorer, help="mode-E scorer")
+                   default=d.read_scorer,
+                   help="mode-E read scorer: auto takes native when it is "
+                        "built; device runs the CUDA scorer on --device")
     p.add_argument("--coordinator", default=d.coordinator,
                    help="multi-process coordinator host:port (not ported)")
     p.add_argument("--num-processes", type=int, default=d.num_processes,
@@ -81,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, default=d.process_id,
                    help="multi-process: this process's id (not ported)")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the clustering session")
+                   help="torch device of the clustering session and the "
+                        "mode-E t-test")
     return p
 
 

@@ -16,13 +16,16 @@ main path went through the kernels.
 |                      |                        | payloads                                  |
 | chain_collapse       | csrc/chain_collapse.cu | engine.py chain_collapse + parent fold    |
 | finalize             | csrc/finalize.cu       | engine.py _finalize_grouped               |
+| wrs_verdicts         | csrc/ttest.cu          | ops/ttest.py t_cdf, studentttest2,        |
+|                      |                        | wrs_verdicts                              |
+| score_reads          | csrc/reads.cu          | ops/reads.py _device_score_kernel         |
 """
 
 from __future__ import annotations
 
 import torch
 
-from kmerlsh_tpu_torch.ops import lsh, transform
+from kmerlsh_tpu_torch.ops import lsh, transform, ttest
 from kmerlsh_tpu_torch.ops.lsh import BIG_KEY
 from kmerlsh_tpu_torch.ops.segment import segment_starts
 
@@ -30,7 +33,7 @@ MAX_CHAIN_LOG = 15   # chains are cut at positions that are multiples of 2^15
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
-    "chain_collapse": 0, "finalize": 0,
+    "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "score_reads": 0,
 }
 
 
@@ -349,3 +352,120 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
                 cents.data_ptr())
     launches["finalize"] += 1
     return flat, lens, csizes, cents
+
+
+# --- K6: t-test and WRS verdicts ----------------------------------------------
+
+def wrs_verdicts_plain(values, sizes, n1: int, n2: int, pval_thresh: float,
+                       size_thresh: int):
+    _, left, right = ttest.studentttest2(values, n1, n2)
+    verdict = ttest.verdicts_of(left, right, sizes, pval_thresh, size_thresh)
+    return verdict, left, right
+
+
+def wrs_verdicts(values: torch.Tensor, sizes: torch.Tensor, n1: int, n2: int,
+                 pval_thresh: float, size_thresh: int):
+    """Cluster rows (values f32 [N, ≥ n1+n2], group A columns first, each
+    row contiguous; sizes int32 [N]) → (verdict int8 [N]: 2 where the left
+    tail ≤ p, else 1 where the right tail ≤ p, else 0, and 0 for sizes ≤
+    size_thresh; left and right tails f32 [N])."""
+    if not _on_cuda(values, sizes):
+        return wrs_verdicts_plain(values, sizes, n1, n2, pval_thresh,
+                                  size_thresh)
+    _check(values, torch.float32, "values", 2)
+    _check(sizes, torch.int32, "sizes")
+    N, S = values.shape
+    if n1 < 1 or n2 < 1 or n1 + n2 > S or sizes.shape[0] != N:
+        raise ValueError(f"n1 = {n1}, n2 = {n2} for values {tuple(values.shape)}"
+                         f" and sizes {tuple(sizes.shape)}")
+    dev = values.device
+    verdict = torch.empty(N, dtype=torch.int8, device=dev)
+    left = torch.empty(N, dtype=torch.float32, device=dev)
+    right = torch.empty(N, dtype=torch.float32, device=dev)
+    if N:
+        _launch("kl_wrs_verdicts", values.data_ptr(), values.stride(0), N, n1,
+                n2, sizes.data_ptr(), 1.0 / n1 + 1.0 / n2, float(pval_thresh),
+                min(int(size_thresh), 2**31 - 1), verdict.data_ptr(),
+                left.data_ptr(), right.data_ptr())
+        launches["wrs_verdicts"] += 1
+    return verdict, left, right
+
+
+# --- K7: read scorer ------------------------------------------------------------
+
+_SIGN = torch.iinfo(torch.int64).min   # flips the top bit: unsigned order
+
+
+def _bswap64(v: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros_like(v)
+    for i in range(8):
+        out |= ((v >> (8 * i)) & 0xFF) << (8 * (7 - i))
+    return out
+
+
+def _reverse_bases64(v: torch.Tensor) -> torch.Tensor:
+    m2, m4 = 0x3333333333333333, 0x0F0F0F0F0F0F0F0F
+    v = ((v >> 2) & m2) | ((v & m2) << 2)
+    v = ((v >> 4) & m4) | ((v & m4) << 4)
+    return _bswap64(v)
+
+
+def score_reads_plain(codes, win_start, n_win, lens, keys, k: int,
+                      vote: float):
+    """The sliding k-mers of the flat code array, their canonical keys with
+    the top bit flipped (int64 order is then unsigned order), a lower-bound
+    ``searchsorted`` in the flipped keys and per-read hit counts as
+    cumulative-sum differences."""
+    dev = codes.device
+    nw = max(codes.shape[0] - (k - 1), 0)
+    c = codes.to(torch.int64)
+    x = torch.zeros(nw, dtype=torch.int64, device=dev)
+    for j in range(k):
+        x |= c[j:j + nw] << (2 * j)
+    # revcomp = reverse_bases64(~x) >> (64 − 2k), a logical shift
+    rc = (_reverse_bases64(~x) >> (64 - 2 * k)) & ((1 << (2 * k)) - 1)
+    q = torch.minimum(_bswap64(x) ^ _SIGN, _bswap64(rc) ^ _SIGN)
+    skeys = keys ^ _SIGN
+    D = skeys.shape[0]
+    if D:
+        idx = torch.searchsorted(skeys, q)
+        hit = (idx < D) & (skeys[idx.clamp(max=D - 1)] == q)
+    else:
+        hit = torch.zeros(nw, dtype=torch.bool, device=dev)
+    chit = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(hit.to(torch.int64), 0)])
+    ws = win_start.to(torch.int64)
+    counts = (chit[(ws + n_win).clamp(0, nw)] - chit[ws.clamp(0, nw)])
+    denom = torch.clamp(lens - (k - 1), min=1).to(torch.float32)
+    ratio = counts.to(torch.float32) / denom
+    v = torch.tensor(vote, dtype=torch.float32, device=dev)
+    return (lens >= k + 10) & (n_win > 0) & (ratio > v)
+
+
+def score_reads(codes: torch.Tensor, win_start: torch.Tensor,
+                n_win: torch.Tensor, lens: torch.Tensor, keys: torch.Tensor,
+                k: int, vote: float) -> torch.Tensor:
+    """Score the reads of one part (``ops.reads.pack_part``): codes uint8
+    [L], the reads' first windows, window counts and lengths int32 [n],
+    and the differential keys as int64 [D] holding unsigned 64-bit keys in
+    unsigned ascending order → bool [n], selected reads. Every read's
+    windows must lie inside ``codes``: win_start + n_win + k − 1 ≤ L."""
+    if not _on_cuda(codes, win_start, n_win, lens, keys):
+        return score_reads_plain(codes, win_start, n_win, lens, keys, k, vote)
+    _check(codes, torch.uint8, "codes")
+    for name, t in (("win_start", win_start), ("n_win", n_win),
+                    ("lens", lens)):
+        _check(t, torch.int32, name)
+    _check(keys, torch.int64, "keys")
+    n = lens.shape[0]
+    if win_start.shape[0] != n or n_win.shape[0] != n:
+        raise ValueError("win_start, n_win and lens differ in length")
+    if not 1 <= k <= 31:
+        raise ValueError(f"k = {k} outside [1, 31]")
+    out = torch.empty(n, dtype=torch.uint8, device=codes.device)
+    if n:
+        _launch("kl_score_reads", codes.data_ptr(), win_start.data_ptr(),
+                n_win.data_ptr(), lens.data_ptr(), n, keys.data_ptr(),
+                keys.shape[0], k, float(vote), out.data_ptr())
+        launches["score_reads"] += 1
+    return out.view(torch.bool)

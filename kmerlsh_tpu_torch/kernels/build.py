@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``kmerlsh_tpu_torch/csrc`` and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, which ``ctypes`` loads. The library
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, which ``ctypes`` loads. The library
 name carries a hash of the sources and flags: a changed source builds anew
 at first use, an unchanged one loads the library already built. The build
 goes to ``build/kmerlsh_tpu_torch/`` at the root of the checkout.
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kmerlsh_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,8 @@ SIGNATURES = {
                           _P, _P, _P),
     "kl_finalize_keys": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "kl_finalize_gather": (_L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "kl_wrs_verdicts": (_P, _L, _L, _I, _I, _P, _F, _F, _I, _P, _P, _P, _P),
+    "kl_score_reads": (_P, _P, _P, _P, _I, _P, _L, _I, _F, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -80,18 +83,27 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, p.stem + ".o") for p in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        errors = []
+        for src, proc in zip(_sources(), procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err[-4000:]}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        lib = os.path.join(work, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+                f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 import torch
 
-from kmerlsh_tpu_torch import kernels
+from kmerlsh_tpu_torch import kernels, testdata
 from kmerlsh_tpu_torch.cluster import engine
-from kmerlsh_tpu_torch.ops import rng
+from kmerlsh_tpu_torch.ops import reads, rng
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +118,53 @@ def test_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         kernels.lsh_keys(values, sizes.cpu(),
                          rng.draw_hyperplanes(0, 0, S).to(dev), 5)
+
+
+@pytest.mark.parametrize("n1,n2", [(10, 10), (5, 7)])
+def test_wrs_verdicts_matches_plain(dev, n1, n2):
+    values, sizes = testdata.wrs_rows(1 << 16, n1, n2, seed=n1)
+    v = torch.from_numpy(values).to(dev)
+    sz = torch.from_numpy(sizes).to(dev)
+    k = kernels.wrs_verdicts(v, sz, n1, n2, 0.01, 5)
+    p = kernels.wrs_verdicts_plain(v, sz, n1, n2, 0.01, 5)
+    assert torch.equal(k[0], p[0])
+    assert int((k[0] == 1).sum()) > 100 and int((k[0] == 2).sum()) > 100
+    # the same float32 operations in the same order: a few ulps at most
+    for a, b in zip(k[1:], p[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # a strided row view: only the first n1 + n2 columns are read
+    wide = torch.cat([v, torch.full_like(v[:, :3], 9.0)], dim=1)
+    kw = kernels.wrs_verdicts(wide, sz, n1, n2, 0.01, 5)
+    assert all(torch.equal(a, b) for a, b in zip(kw, k))
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_score_reads_matches_plain_and_native(dev, k):
+    seqs, keys, tie = testdata.read_part(4096, 1 << 14, k=k, seed=k)
+    packed = [torch.from_numpy(a).to(dev) for a in reads.pack_part(seqs, k)]
+    dkeys = torch.from_numpy(keys.view(np.int64)).to(dev)
+    got = kernels.score_reads(*packed, dkeys, k, 0.5)
+    want = kernels.score_reads_plain(*packed, dkeys, k, 0.5)
+    assert torch.equal(got, want)
+    mask = got.cpu().numpy()
+    assert np.array_equal(mask, reads.score_part_native(seqs, keys, k, 0.5))
+    assert 0 < mask.sum() < len(seqs) and not mask[tie]
+    assert np.array_equal(reads.score_part_device(seqs, keys, k, 0.5, dev),
+                          mask)
+
+
+def test_mode_e_wrappers_refuse_bad_input(dev):
+    values, sizes = testdata.wrs_rows(100, 10, 10)
+    v = torch.from_numpy(values).to(dev)
+    with pytest.raises(ValueError):
+        kernels.wrs_verdicts(v, torch.from_numpy(sizes).to(dev), 10, 11,
+                             0.01, 5)
+    with pytest.raises(ValueError):
+        kernels.wrs_verdicts(v, torch.from_numpy(sizes).to(dev).long(), 10,
+                             10, 0.01, 5)
+    codes = torch.zeros(100, dtype=torch.uint8, device=dev)
+    i32 = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.score_reads(codes, i32, i32, i32,
+                            torch.zeros(4, dtype=torch.int32, device=dev),
+                            15, 0.5)
