@@ -6,10 +6,15 @@ Phases:
   1. versions, and the card's name and power limit from nvidia-smi;
   2. build the CUDA kernels from kmerlsh_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the same CUDA inputs,
-     with both timed (CUDA events, median of 5 after a warm-up): the mode-C
-     kernels at 2^20 x 20, the t-test on 2^20 cluster rows of 10 + 10
+     with both timed (CUDA events, median of 5 after a warm-up), beside its
+     bound (the bytes it must move over the card's memory rate, or its
+     float32 operations over the card's rate, whichever is larger) and,
+     where one PyTorch call computes the same function, that call's time:
+     the mode-C kernels at 2^20 x 20, the exchange kernels on the 2^20 x 20
+     local-phase result with e = 4096 (the fold after a global phase over
+     four ranks' windows), the t-test on 2^20 cluster rows of 10 + 10
      samples, the read scorer on one part of 2^16 reads of 150 bp against
-     2^22 keys (k = 31);
+     2^22 keys (k = 31); then the mode-C kernels again at 2^24 x 20;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -26,7 +31,16 @@ Phases:
      against a float64 recomputation, extracted reads equal between all
      runs, E_wrs and reads/s of every run, and the card's idle share in
      the traced run;
-  7. the kernels line, the card line, and the result line last.
+  7. sharded, four ranks on the one card: four kmerlsh-torch processes
+     (--coordinator / --num-processes / --process-id, --device cuda, so
+     all on cuda:0 over gloo) run phase 5's mode C and then phase 6's mode
+     E on phase 6's clustering file. Rank 0's clustering passes phase 5's
+     checks, its cluster count lies within the reference's bound for the
+     tail the run took (COUNT_BOUND) of phase 5's, every rank
+     launched both exchange kernels (and the t-test kernel in mode E), the
+     sharded verdicts equal phase 6's bit for bit and the extracted FASTQs
+     equal phase 6's byte for byte;
+  8. the kernels line, the card line, and the result line last.
 
 Any failed check raises, and the script exits non-zero without a result. It
 exits non-zero at once where torch sees no CUDA device.
@@ -60,12 +74,17 @@ from kmerlsh_tpu_torch.cli import main as cli_main, params_from_args  # noqa: E4
 from kmerlsh_tpu_torch.cluster import engine  # noqa: E402
 from kmerlsh_tpu_torch.io import clusterio, counts as countsio  # noqa: E402
 from kmerlsh_tpu_torch.kernels import build  # noqa: E402
-from kmerlsh_tpu_torch.ops import reads, rng, ttest  # noqa: E402
+from kmerlsh_tpu_torch.ops import reads, rng  # noqa: E402
+from kmerlsh_tpu_torch.parallel import dist  # noqa: E402
 
 DEV = torch.device("cuda", 0)
+ROOT = os.path.dirname(os.path.abspath(__file__))
 S = 20
 SMALL = 1 << 20
 FULL = 1 << 24
+RANKS = 4                # phase 7's processes, all on the one card
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
 # kernel → (source, the reference device program it replaces)
 KERNELS = {
@@ -83,10 +102,23 @@ KERNELS = {
                      "kmerlsh_tpu/ops/ttest.py:57"),
     "score_reads": ("kmerlsh_tpu_torch/csrc/reads.cu",
                     "kmerlsh_tpu/ops/reads.py:145"),
+    "exchange_window": ("kmerlsh_tpu_torch/csrc/exchange.cu",
+                        "kmerlsh_tpu/parallel/dist.py:66"),
+    "exchange_fold": ("kmerlsh_tpu_torch/csrc/exchange.cu",
+                      "kmerlsh_tpu/parallel/dist.py:85"),
 }
 MODE_C = ("abundance_transform", "lsh_keys", "permute_state",
           "chain_collapse", "finalize")
 MODE_E = ("wrs_verdicts", "score_reads")
+EXCHANGE = ("exchange_window", "exchange_fold")
+# Phase 7's bound on the sharded cluster count against one process's, by the
+# tail the reference's decisions chose. The handoff tail replays the end of
+# the anneal with one device's semantics: within 10% (the reference's
+# tests/test_dist.py:205). The terminal rounds, run when the survivors never
+# fit dist.HANDOFF_CAP, may depart further by design (tests/test_torch_dist.py
+# measures the port's and the reference's terminal counts equal on the CPU):
+# the reference bounds their rise at 15% (tests/test_dist.py:264).
+COUNT_BOUND = {"handoff": (-0.10, 0.10), "terminal": (None, 0.15)}
 E_ORDER = ("device", "native", "native", "device")   # phase 6's scorer runs
 K_E = 31                 # k of the full-size mode-E phase
 READ_LEN = 150
@@ -188,20 +220,122 @@ def _exact(name: str, pairs) -> float:
     return _max_err(pairs)
 
 
-def phase_kernels() -> dict:
-    """Each kernel against its plain version on the same CUDA inputs at
-    2^20 x 20, the shapes of a session's first iteration."""
+def bound(n_bytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take for a call (ms): the larger of
+    the bytes it must move (each input read once, each output written
+    once) over the memory rate and its float32 operations over the float32
+    rate."""
+    b, f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return dict(bound_ms=1e3 * max(b, f),
+                bound_by="bytes" if b >= f else "operations")
+
+
+def timings(kernel, plain, n_bytes: float, flops: float = 0.0,
+            library=None) -> dict:
+    """ms of the kernel, of its plain version and of the one PyTorch call
+    computing the same function (None where there is none), and the
+    bound."""
+    return dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library) if library else None,
+                **bound(n_bytes, flops))
+
+
+def log_kernels(res: dict, n: int) -> None:
+    for name, r in res.items():
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "none")
+        log(f"kernel {name} at {n}: max_abs_err {r['max_abs_err']:.3g}  "
+            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library {lib}")
+
+
+def finalize_timed(vt, sz, sl, parent) -> tuple[dict, int]:
+    """Compact a session's final state, hold finalize on it against its
+    plain version and time both. Returns (the kernel's entry, clusters)."""
+    vt, sz, sl = engine.compact_sort(vt, sz, sl)
+    na = int((sz > 0).sum())
+    vt, sz, sl = vt[:, :na].contiguous(), sz[:na], sl[:na]
+    k = kernels.finalize(vt, sz, sl, parent)
+    p = kernels.finalize_plain(vt, sz, sl, parent)
+    cap0 = parent.shape[0]
+    # state and parent in; members, lens, sizes and centroids out
+    return dict(max_abs_err=_exact("finalize", zip(k, p)),
+                **timings(lambda: kernels.finalize(vt, sz, sl, parent),
+                          lambda: kernels.finalize_plain(vt, sz, sl, parent),
+                          8 * S * na + 16 * na + 8 * cap0)), na
+
+
+def phase_kernels_exchange(local, merged: int) -> dict:
+    """The exchange kernels on a 2^20 x 20 local-phase result (values,
+    sizes, slots, merged_into): the rotating window of e = 4096 survivors,
+    then the fold of rank 1's window after a global phase over four ranks'
+    windows (testdata.exchange_inputs), each exact against its plain
+    version."""
     res = {}
-    counts = torch.from_numpy(make_counts(SMALL, seed=1)).to(DEV)
+    values, sizes, slots, mi = local
+    c, e = values.shape[1], dist.EXCHANGE_CAP
+    k = kernels.exchange_window(values, sizes, slots, e, 1)
+    p = kernels.exchange_window_plain(values, sizes, slots, e, 1)
+    # sizes in, and the window's columns; the window out
+    res["exchange_window"] = dict(
+        max_abs_err=_exact("exchange_window", zip(k, p)),
+        **timings(lambda: kernels.exchange_window(values, sizes, slots, e, 1),
+                  lambda: kernels.exchange_window_plain(values, sizes, slots,
+                                                        e, 1),
+                  4 * c + e * (4 * S + 8) + e * (4 * S + 12)))
+    n_valid = int((k[0] < c).sum())
+    if n_valid != e:
+        raise AssertionError(f"exchange_window: {n_valid} of {e} entries")
+
+    (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
+     base) = testdata.exchange_inputs(values, sizes, slots, mi, 4, 1, e)
+    g_merged = int((glob[2] >= 0).sum())
+    if g_merged == 0:
+        raise AssertionError("exchange_fold: the global phase merged nothing")
+    kv, ks, kp = lv.clone(), ls.clone(), parent.clone()
+    pv, ps, pp = lv.clone(), ls.clone(), parent.clone()
+    kernels.exchange_fold(*glob, w_slots, pos, kv, ks, lsl, lmi, kp, base)
+    kernels.exchange_fold_plain(*glob, w_slots, pos, pv, ps, lsl, lmi, pp,
+                                base)
+    err = _exact("exchange_fold", [(kv, pv), (ks, ps), (kp, pp)])
+    folds = int((kp != parent).sum())
+    n = glob[0].shape[1]
+    # local slots and merged_into, the gathered slots, the window in; the
+    # window's merged columns read and written, one parent entry per merge
+    # (the fold writes the same values again: timed in place)
+    res["exchange_fold"] = dict(
+        max_abs_err=err,
+        **timings(lambda: kernels.exchange_fold(*glob, w_slots, pos, kv, ks,
+                                                lsl, lmi, kp, base),
+                  lambda: kernels.exchange_fold_plain(*glob, w_slots, pos, pv,
+                                                      ps, lsl, lmi, pp, base),
+                  8 * c + 4 * n + 8 * e + n_valid * (8 * S + 12)
+                  + 4 * folds))
+    log(f"exchange: window of {e} of {int((sizes > 0).sum())} alive "
+        f"columns; the global phase over {n} gathered columns merged "
+        f"{g_merged}; the fold set {folds} parent entries ({merged} local "
+        f"merges)")
+    return res
+
+
+def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
+    """Each mode-C kernel against its plain version on the same CUDA
+    inputs at M x 20, the shapes of a session's first iteration, and the
+    exchange kernels on that iteration's result."""
+    res = {}
+    counts = torch.from_numpy(make_counts(M, seed=1)).to(DEV)
     cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
-    v = (cov / SMALL).to(torch.float32)
+    v = (cov / M).to(torch.float32)
 
     k = kernels.abundance_transform(counts, v)
     p = kernels.abundance_transform_plain(counts, v)
+    # uint16 in, f32 values and int32 sizes out; a sum and a subtraction
+    # per count at the least
     res["abundance_transform"] = dict(
         max_abs_err=_exact("abundance_transform", zip(k, p)),
-        ms=cuda_ms(lambda: kernels.abundance_transform(counts, v)),
-        plain_ms=cuda_ms(lambda: kernels.abundance_transform_plain(counts, v)))
+        **timings(lambda: kernels.abundance_transform(counts, v),
+                  lambda: kernels.abundance_transform_plain(counts, v),
+                  6 * S * M + 4 * S + 4 * M, 2 * S * M))
     values, sizes = k
     n_alive = int((sizes > 0).sum())
     h = engine._active_h_of(n_alive)
@@ -209,25 +343,32 @@ def phase_kernels() -> dict:
 
     k = kernels.lsh_keys(values, sizes, planes, h)
     p = kernels.lsh_keys_plain(values, sizes, planes, h)
+    # values and sizes in, keys and projections out; h + 1 projections of
+    # S multiply-adds per column
     res["lsh_keys"] = dict(
         max_abs_err=_exact("lsh_keys", zip(k, p)),
-        ms=cuda_ms(lambda: kernels.lsh_keys(values, sizes, planes, h)),
-        plain_ms=cuda_ms(lambda: kernels.lsh_keys_plain(values, sizes, planes,
-                                                        h)))
+        **timings(lambda: kernels.lsh_keys(values, sizes, planes, h),
+                  lambda: kernels.lsh_keys_plain(values, sizes, planes, h),
+                  4 * S * M + 12 * M + 4 * S * planes.shape[1],
+                  2 * S * M * (h + 1)))
     key = k[0]
     skey, order = torch.sort(key, stable=True)
-    slots = torch.arange(SMALL, dtype=torch.int32, device=DEV)
+    slots = torch.arange(M, dtype=torch.int32, device=DEV)
 
     k = kernels.permute_state(values, sizes, slots, order)
     p = kernels.permute_state_plain(values, sizes, slots, order)
+    # state and int64 order in, state out; the library call moves the
+    # values alone
     res["permute_state"] = dict(
         max_abs_err=_exact("permute_state", zip(k, p)),
-        ms=cuda_ms(lambda: kernels.permute_state(values, sizes, slots, order)),
-        plain_ms=cuda_ms(lambda: kernels.permute_state_plain(
-            values, sizes, slots, order)))
+        **timings(lambda: kernels.permute_state(values, sizes, slots, order),
+                  lambda: kernels.permute_state_plain(values, sizes, slots,
+                                                      order),
+                  8 * S * M + 24 * M,
+                  library=lambda: torch.index_select(values, 1, order)))
     svals, ssizes, sslots = k
 
-    parent0 = torch.arange(SMALL, dtype=torch.int32, device=DEV)
+    parent0 = torch.arange(M, dtype=torch.int32, device=DEV)
     pk, pp = parent0.clone(), parent0.clone()
     k = kernels.chain_collapse(svals, ssizes, sslots, skey, 0.95, h, None, pk)
     p = kernels.chain_collapse_plain(svals, ssizes, sslots, skey, 0.95, h,
@@ -238,13 +379,20 @@ def phase_kernels() -> dict:
     if merged == 0:
         raise AssertionError("chain_collapse: no chain merged at 0.95")
     torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=0)
+    # sorted state and keys in; state, merged_into and one parent entry per
+    # merge out; three products (dot and two norms) per value at the least
     res["chain_collapse"] = dict(
         max_abs_err=_max_err([(k[0], p[0])]),
-        ms=cuda_ms(lambda: kernels.chain_collapse(
-            svals, ssizes, sslots, skey, 0.95, h, None, parent0.clone())),
-        plain_ms=cuda_ms(lambda: kernels.chain_collapse_plain(
-            svals, ssizes, sslots, skey, 0.95, h, None, parent0.clone())))
+        **timings(lambda: kernels.chain_collapse(
+                      svals, ssizes, sslots, skey, 0.95, h, None,
+                      parent0.clone()),
+                  lambda: kernels.chain_collapse_plain(
+                      svals, ssizes, sslots, skey, 0.95, h, None,
+                      parent0.clone()),
+                  8 * S * M + 28 * M + 4 * merged, 6 * S * M))
     log(f"chain_collapse: {merged} of {n_alive} columns merged at 0.95")
+    if exchange:
+        res.update(phase_kernels_exchange(k, merged))
 
     # a session's final state: a few more iterations through the kernels
     vt, sz, sl, parent = k[0], k[1], k[2], pk
@@ -253,19 +401,9 @@ def phase_kernels() -> dict:
         vt, sz, sl = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(DEV),
             0.95 - 0.01 * it, engine._active_h_of(na))
-    vt, sz, sl = engine.compact_sort(vt, sz, sl)
-    na = int((sz > 0).sum())
-    vt, sz, sl = vt[:, :na].contiguous(), sz[:na], sl[:na]
-    k = kernels.finalize(vt, sz, sl, parent)
-    p = kernels.finalize_plain(vt, sz, sl, parent)
-    res["finalize"] = dict(
-        max_abs_err=_exact("finalize", zip(k, p)),
-        ms=cuda_ms(lambda: kernels.finalize(vt, sz, sl, parent)),
-        plain_ms=cuda_ms(lambda: kernels.finalize_plain(vt, sz, sl, parent)))
-    log(f"finalize: {na} clusters over {SMALL} rows")
-    for name, r in res.items():
-        log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g}  "
-            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+    res["finalize"], na = finalize_timed(vt, sz, sl, parent)
+    log(f"finalize: {na} clusters over {M} rows")
+    log_kernels(res, M)
     return res
 
 
@@ -288,10 +426,14 @@ def phase_kernels_mode_e() -> dict:
     n1, n2 = int((k[0] == 1).sum()), int((k[0] == 2).sum())
     if n1 == 0 or n2 == 0:
         raise AssertionError(f"wrs_verdicts: {n1} / {n2} rows in groups 1 / 2")
+    # rows and sizes in, verdicts and both tails out; four operations per
+    # value (the group sums and squared deviations), the t CDF's continued
+    # fraction not counted
     res["wrs_verdicts"] = dict(
         max_abs_err=_max_err(zip(k[1:], p[1:])),
-        ms=cuda_ms(lambda: kernels.wrs_verdicts(*args)),
-        plain_ms=cuda_ms(lambda: kernels.wrs_verdicts_plain(*args)))
+        **timings(lambda: kernels.wrs_verdicts(*args),
+                  lambda: kernels.wrs_verdicts_plain(*args),
+                  4 * S * SMALL + 13 * SMALL, 4 * S * SMALL))
     log(f"wrs_verdicts: {SMALL} rows, {n1} in group 1, {n2} in group 2")
 
     t0 = time.perf_counter()
@@ -313,15 +455,15 @@ def phase_kernels_mode_e() -> dict:
     if mask[tie] or not 0 < mask.sum() < len(mask):
         raise AssertionError(f"score_reads: tie read selected or "
                              f"{int(mask.sum())} of {len(mask)} selected")
+    # codes, per-read windows and lengths, and the keys in; the mask out
     res["score_reads"] = dict(
         max_abs_err=_max_err([(k, p)]),
-        ms=cuda_ms(lambda: kernels.score_reads(*args)),
-        plain_ms=cuda_ms(lambda: kernels.score_reads_plain(*args)))
+        **timings(lambda: kernels.score_reads(*args),
+                  lambda: kernels.score_reads_plain(*args),
+                  part[0].numel() + 13 * len(seqs) + 8 * len(keys)))
     log(f"score_reads: {int(mask.sum())} of {len(mask)} reads selected, "
         f"equal to the plain and the native scorer")
-    for name, r in res.items():
-        log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g}  "
-            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+    log_kernels(res, SMALL)
     return res
 
 
@@ -401,6 +543,35 @@ def phase_fixture(tmp: str) -> None:
         f"byte-identical")
 
 
+def check_clustering(tag: str, clust: str, counts: np.ndarray,
+                     v_kmers: list[float]) -> tuple[int, float]:
+    """A mode-C clustering file of ``counts``: every row id once and in
+    range, finite centroids, and the centroids of 1000 sampled clusters
+    equal to their members' mean recomputed on the host. Returns (saved
+    clusters, the largest centroid error)."""
+    values, ids = clusterio.read_cluster_all(clust, S)
+    flat = ids.flat.astype(np.int64)
+    if len(np.unique(flat)) != len(flat) or (flat >= counts.shape[1]).any():
+        raise AssertionError(f"{tag}: a row id twice or out of range")
+    if not np.isfinite(values).all() or values.shape != (len(ids), S):
+        raise AssertionError(f"{tag}: centroids malformed")
+    r = np.random.default_rng(0)
+    pick = r.choice(len(ids), size=min(1000, len(ids)), replace=False)
+    v = np.asarray(v_kmers, np.float32)
+    worst = 0.0
+    for c in pick:
+        members = ids[int(c)].astype(np.int64)
+        rows = np.log1p(counts[:, members].astype(np.float64)) - v[:, None]
+        want = rows.mean(axis=1)
+        # rtol 1e-4 of the member values' magnitude (~1): the engine sums in
+        # float32, in chain order
+        err = np.abs(values[c] - want).max()
+        worst = max(worst, float(err))
+        if err > 1e-4 * max(1.0, np.abs(want).max()):
+            raise AssertionError(f"{tag}: cluster {c} centroid off by {err}")
+    return len(ids), worst
+
+
 def phase_full(tmp: str) -> dict:
     """Mode C at 2^24 x 20 through the CLI, cold then warm."""
     t0 = time.perf_counter()
@@ -428,34 +599,17 @@ def phase_full(tmp: str) -> dict:
     warm_device = engine.LAST_SESSION["device_seconds"]
     peak = torch.cuda.max_memory_allocated(DEV)
 
-    values, ids = clusterio.read_cluster_all(clust, S)
-    flat = ids.flat.astype(np.int64)
-    if len(np.unique(flat)) != len(flat) or (flat >= FULL).any():
-        raise AssertionError("full: a row id twice or out of range")
-    if not np.isfinite(values).all() or values.shape != (len(ids), S):
-        raise AssertionError("full: centroids malformed")
-    r = np.random.default_rng(0)
-    pick = r.choice(len(ids), size=min(1000, len(ids)), replace=False)
-    v = np.asarray(v_kmers, np.float32)
-    worst = 0.0
-    for c in pick:
-        members = ids[int(c)].astype(np.int64)
-        rows = np.log1p(counts[:, members].astype(np.float64)) - v[:, None]
-        want = rows.mean(axis=1)
-        # rtol 1e-4 of the member values' magnitude (~1): the engine sums in
-        # float32, in chain order
-        err = np.abs(values[c] - want).max()
-        worst = max(worst, float(err))
-        if err > 1e-4 * max(1.0, np.abs(want).max()):
-            raise AssertionError(f"full: cluster {c} centroid off by {err}")
+    saved, worst = check_clustering("full", clust, counts, v_kmers)
     n_clusters = engine.LAST_SESSION["clusters"]
-    log(f"full: {n_clusters} clusters, {len(ids)} saved (size > 5); centroids of "
-        f"{len(pick)} sampled clusters within {worst:.3g} of the host means")
+    log(f"full: {n_clusters} clusters, {saved} saved (size > 5); centroids "
+        f"of 1000 sampled clusters within {worst:.3g} of the host means")
     log(f"full: cold {cold:.3f} s (device {cold_device:.3f} s), warm "
         f"{warm:.3f} s (device {warm_device:.3f} s), peak device memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"full: programs {engine.LAST_SESSION['programs']}")
-    return dict(launches=launches, clusters=n_clusters, cold=cold, warm=warm)
+    return dict(launches=launches, clusters=n_clusters, saved=saved,
+                cold=cold, warm=warm, counts=counts, v_kmers=v_kmers,
+                argv=argv)
 
 
 def host_verdicts(values: np.ndarray, sizes: np.ndarray, pval: float,
@@ -574,7 +728,8 @@ def phase_mode_e(tmp: str) -> dict:
         f"{m['diff_kmers_group2']} (group B); {selected} of {total} reads "
         f"selected, byte-identical between the scorers")
     out = dict(launches=dev["launches"], clusters=len(ids),
-               tested=len(tested))
+               tested=len(tested), verdicts=verdicts, outs=dev["outs"],
+               argv=e_argv, samples=samples)
     for i, (scorer, run) in enumerate(runs):
         t = run["stages"].times
         log(f"mode E run {i} ({scorer} scorer): E_wrs {t['E_wrs']:.4f} s, "
@@ -603,6 +758,154 @@ def device_busy_seconds(trace) -> float:
     return busy * 1e-6
 
 
+# One rank of phase 7: the CLI as a user runs it, then this rank's kernel
+# launches, session split, wall and peak device memory to <out>.json and
+# its mode-E verdicts to <out>.npy.
+RANK_MAIN = r"""
+import json, sys, time
+import numpy as np
+import torch
+from kmerlsh_tpu_torch import kernels, pipeline
+from kmerlsh_tpu_torch.cli import main
+from kmerlsh_tpu_torch.cluster import engine
+from kmerlsh_tpu_torch.parallel import dist
+
+out, argv = sys.argv[1], sys.argv[2:]
+kernels.reset_launches()
+t0 = time.perf_counter()
+main(argv)
+wall = time.perf_counter() - t0
+sess = dist.LAST_SESSION
+rec = dict(wall=wall, launches=dict(kernels.launches),
+           peak_bytes=torch.cuda.max_memory_allocated(),
+           device_seconds=sess.get("device_seconds"),
+           pull_seconds=sess.get("pull_seconds"),
+           sharded_iterations=sess.get("sharded_iterations"),
+           alive=sess.get("alive"), programs=sess.get("programs"),
+           stages={k: round(v, 4)
+                   for k, v in pipeline.LAST_STAGES.times.items()},
+           tail=sess.get("tail"), clusters=engine.LAST_SESSION.get("clusters"),
+           foreign=sorted(n for n in sys.modules if n.split(".")[0]
+                          in ("jax", "jaxlib", "kmerlsh_tpu")))
+if pipeline.LAST_VERDICTS is not None:
+    np.save(out + ".npy", pipeline.LAST_VERDICTS)
+with open(out + ".json", "w") as f:
+    json.dump(rec, f)
+"""
+RANK_TIMEOUT = 600       # seconds for one run of the four ranks
+
+
+def run_ranks(tag: str, argv: list[str], work: str) -> list[dict]:
+    """RANKS processes of the CLI with ``argv`` in one process group, each
+    on the card (--device cuda). Every one must exit 0; the rest are killed
+    once one fails. Returns the ranks' records."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    outs = [os.path.join(work, f"{tag}_rank{r}") for r in range(RANKS)]
+    logs = [open(o + ".log", "w") for o in outs]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_MAIN, outs[r], *argv, "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", str(RANKS), "--process-id",
+         str(r), "--device", "cuda"], cwd=ROOT, env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(RANKS)]
+    t0 = time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < RANK_TIMEOUT:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = open(outs[r] + ".log").read()[-3000:]
+            raise AssertionError(f"sharded {tag}: rank {r} exited "
+                                 f"{p.returncode}:\n{tail}")
+    recs = [json.load(open(o + ".json")) for o in outs]
+    for r, rec in enumerate(recs):
+        if rec["foreign"]:
+            raise AssertionError(f"sharded {tag}: rank {r} imported "
+                                 f"{rec['foreign']}")
+        split = (f"device {rec['device_seconds']:.3f} s, pull "
+                 f"{rec['pull_seconds']:.3f} s, sharded to iteration "
+                 f"{rec['sharded_iterations']} with {rec['alive']} alive, "
+                 f"then the {rec['tail']} tail, "
+                 if rec["device_seconds"] is not None else "")
+        log(f"sharded {tag}: rank {r}: wall {rec['wall']:.3f} s, {split}"
+            f"peak device memory {rec['peak_bytes'] / 2**20:.1f} MiB; "
+            f"stages {rec['stages']}")
+    return recs
+
+
+def phase_sharded(full: dict, full_dir: str, mode_e: dict,
+                  e_dir: str) -> dict:
+    """Phase 5's mode C, then phase 6's mode E on phase 6's clustering
+    file, each on RANKS processes that share the one card."""
+    argv = list(full["argv"])
+    clust = os.path.join(full_dir, "sharded_result.txt")
+    argv[argv.index("-F") + 1] = clust
+    recs = run_ranks("C", argv, full_dir)
+    log(f"sharded C: rank 0's programs {recs[0]['programs']}")
+    for r, rec in enumerate(recs):
+        missing = [k for k in EXCHANGE if rec["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"sharded C: rank {r} never launched "
+                                 f"{missing}")
+    tails = {(rec["tail"], rec["sharded_iterations"]) for rec in recs}
+    if len(tails) != 1 or recs[0]["tail"] not in COUNT_BOUND:
+        raise AssertionError(f"sharded C: the ranks' tails {sorted(tails)}")
+    saved, worst = check_clustering("sharded C", clust, full["counts"],
+                                    full["v_kmers"])
+    total = recs[0]["clusters"]
+    lo, hi = COUNT_BOUND[recs[0]["tail"]]
+    for name, got, want in (("clusters", total, full["clusters"]),
+                            ("saved clusters", saved, full["saved"])):
+        rise = got / want - 1
+        if not (rise < hi and (lo is None or rise > lo)):
+            raise AssertionError(f"sharded C: {got} {name} against {want} "
+                                 f"on one process ({rise:+.2%}, "
+                                 f"{recs[0]['tail']} tail)")
+    log(f"sharded C: {total} clusters, {saved} saved (one process: "
+        f"{full['clusters']}, {full['saved']}: "
+        f"{total / full['clusters'] - 1:+.2%}, "
+        f"{saved / full['saved'] - 1:+.2%}, {recs[0]['tail']} tail); "
+        f"centroids of 1000 sampled "
+        f"clusters within {worst:.3g} of the host means; exchange launches "
+        f"per rank {[[rec['launches'][k] for k in EXCHANGE] for rec in recs]}"
+        f" (four ranks share one card: not a four-card speed)")
+
+    pa, pb = (os.path.join(e_dir, f"sharded_{g}") for g in "AB")
+    recs_e = run_ranks("E", mode_e["argv"] + ["--only", "-M", "E", "-o", pa,
+                                              "-p", pb], e_dir)
+    want = mode_e["verdicts"]
+    for r, rec in enumerate(recs_e):
+        if rec["launches"]["wrs_verdicts"] == 0:
+            raise AssertionError(f"sharded E: rank {r} never launched "
+                                 "wrs_verdicts")
+        got = np.load(os.path.join(e_dir, f"E_rank{r}.npy"))
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"sharded E: rank {r}'s verdicts differ "
+                                 "from one process's")
+    outs = [f"{pre}_{os.path.basename(f)}"
+            for pre, part in zip((pa, pb), mode_e["samples"]) for f in part]
+    n = _same_files("sharded E", outs, mode_e["outs"])
+    log(f"sharded E: {len(want)} verdicts of every rank equal one "
+        f"process's; {n} extracted reads byte-identical")
+    return dict(launches={k: sum(rec["launches"][k] for rec in recs)
+                          for k in EXCHANGE})
+
+
 def main() -> None:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
@@ -618,16 +921,22 @@ def main() -> None:
 
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
+    phase_kernels(FULL, exchange=False)        # logged only
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        full = phase_full(tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        mode_e = phase_mode_e(tmp)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    with tempfile.TemporaryDirectory() as t5, \
+            tempfile.TemporaryDirectory() as t6:
+        full = phase_full(t5)
+        mode_e = phase_mode_e(t6)
+        pipeline._DEVICE_COUNTS_CACHE.clear()
+        torch.cuda.empty_cache()
+        sharded = phase_sharded(full, t5, mode_e, t6)
+    for name in ("jax", "kmerlsh_tpu"):
+        if name in sys.modules:
+            raise AssertionError(f"{name} was imported")
 
-    launches = {**full["launches"], **mode_e["launches"]}
+    launches = {**full["launches"], **mode_e["launches"],
+                **sharded["launches"]}
     line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **res[name])

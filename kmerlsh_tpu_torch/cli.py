@@ -2,9 +2,13 @@
 kmerlsh_tpu/cli.py (flag-compatible with the reference ``kmerLSH``) plus
 ``--device``.
 
-Modes K, B, C and E run, clustering and testing on ``--device``; the
-out-of-core rounds and multi-process runs are refused with an error until
-they are ported.
+Modes K, B, C and E run, clustering and testing on ``--device``. With
+``--coordinator host:port --num-processes N --process-id i`` the same
+command on N processes forms a ``torch.distributed`` group, one rank per
+process: ``--device cuda`` then puts each rank on ``cuda:<local rank %
+device count>`` (NCCL when the host's ranks have a card each, gloo when they
+share one), ``--device cpu`` runs every rank on the CPU (gloo). The
+out-of-core rounds are refused with an error until they are ported.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ import argparse
 import contextlib
 import sys
 
-from kmerlsh_tpu.config import HyperParams
+from kmerlsh_tpu_torch.config import HyperParams
+from kmerlsh_tpu_torch.parallel import multihost
 from kmerlsh_tpu_torch.pipeline import kmer_cluster
 
 
@@ -78,14 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mode-E read scorer: auto takes native when it is "
                         "built; device runs the CUDA scorer on --device")
     p.add_argument("--coordinator", default=d.coordinator,
-                   help="multi-process coordinator host:port (not ported)")
+                   help="multi-process: torch.distributed rendezvous "
+                        "host:port (run the same command in every process)")
     p.add_argument("--num-processes", type=int, default=d.num_processes,
-                   help="multi-process: total process count (not ported)")
+                   help="multi-process: total process count")
     p.add_argument("--process-id", type=int, default=d.process_id,
-                   help="multi-process: this process's id (not ported)")
+                   help="multi-process: this process's id (0-based)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the clustering session and the "
-                        "mode-E t-test")
+                        "mode-E t-test; multi-process, a bare cuda takes "
+                        "the rank's local card")
     return p
 
 
@@ -113,6 +120,14 @@ def params_from_args(argv: list[str]) -> tuple[HyperParams, str]:
 
 def main(argv: list[str] | None = None) -> None:
     params, device = params_from_args(sys.argv[1:] if argv is None else argv)
+    device = multihost.maybe_initialize(params, device)
+    try:
+        _run(params, device)
+    finally:
+        multihost.shutdown()
+
+
+def _run(params: HyperParams, device: str) -> None:
     if params.verbose:
         print("************ kmers Cluster Params Setting ****************")
         for field, val in vars(params).items():

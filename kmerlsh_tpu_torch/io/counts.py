@@ -23,7 +23,7 @@ import os
 import numpy as np
 
 from kmerlsh_tpu_torch.io import kmc as kmcio
-from kmerlsh_tpu.kmer import codec
+from kmerlsh_tpu_torch.kmer import codec
 
 HEX_NAME = "kmer_set.hex"
 BIN_NAME = "kmer_count.bin"

@@ -36,7 +36,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from kmerlsh_tpu.kmer import codec
+from kmerlsh_tpu_torch.kmer import codec
 
 PRE_MARKER = b"KMCP"
 SUF_MARKER = b"KMCS"

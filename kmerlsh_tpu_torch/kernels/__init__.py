@@ -19,6 +19,10 @@ main path went through the kernels.
 | wrs_verdicts         | csrc/ttest.cu          | ops/ttest.py t_cdf, studentttest2,        |
 |                      |                        | wrs_verdicts                              |
 | score_reads          | csrc/reads.cu          | ops/reads.py _device_score_kernel         |
+| exchange_window      | csrc/exchange.cu       | parallel/dist.py _window_positions and    |
+|                      |                        | the window gather                         |
+| exchange_fold        | csrc/exchange.cu       | parallel/dist.py _realign_to, the global  |
+|                      |                        | parent fold and the write-back            |
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ MAX_CHAIN_LOG = 15   # chains are cut at positions that are multiples of 2^15
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
     "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "score_reads": 0,
+    "exchange_window": 0, "exchange_fold": 0,
 }
 
 
@@ -469,3 +474,122 @@ def score_reads(codes: torch.Tensor, win_start: torch.Tensor,
                 keys.shape[0], k, float(vote), out.data_ptr())
         launches["score_reads"] += 1
     return out.view(torch.bool)
+
+
+# --- K8: the cross-shard exchange -----------------------------------------------
+
+def exchange_window_plain(values_t, sizes, slots, e: int, rot: int):
+    c = sizes.shape[0]
+    dev = sizes.device
+    ar = torch.cumsum((sizes > 0).to(torch.int32), 0, dtype=torch.int32)
+    n_local = ar[-1]
+    j = torch.arange(e, dtype=torch.int32, device=dev)
+    rank = torch.where(n_local > e, (j + rot * e) % torch.clamp(n_local, min=1),
+                       j)
+    valid = j < n_local
+    pos = torch.where(valid, torch.searchsorted(ar, rank + 1).to(torch.int32),
+                      c)
+    posc = torch.clamp(pos, max=c - 1).long()
+    w_sizes = torch.where(valid, sizes[posc], 0)
+    w_slots = torch.where(valid, slots[posc], -1)
+    return pos, values_t[:, posc], w_sizes, w_slots
+
+
+def exchange_window(values_t: torch.Tensor, sizes: torch.Tensor,
+                    slots: torch.Tensor, e: int, rot: int):
+    """The rotating exchange window of one rank's state (values f32 [S, c],
+    rows may be strided; sizes, slots int32 [c], c ≥ 1): entry j is the
+    alive column of alive-rank (j + rot·e) mod n_local in position order
+    (j itself when n_local ≤ e). Returns (pos int32 [e], c for padding;
+    values f32 [S, e]; sizes int32 [e], 0 for padding; slots int32 [e], -1
+    for padding)."""
+    if not _on_cuda(values_t, sizes, slots):
+        return exchange_window_plain(values_t, sizes, slots, e, rot)
+    _check(values_t, torch.float32, "values_t", 2)
+    _check(sizes, torch.int32, "sizes")
+    _check(slots, torch.int32, "slots")
+    S, c = values_t.shape
+    if c < 1 or e < 1 or sizes.shape[0] != c or slots.shape[0] != c:
+        raise ValueError(f"exchange_window: c = {c}, e = {e}, sizes "
+                         f"{tuple(sizes.shape)}, slots {tuple(slots.shape)}")
+    dev = values_t.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    offs = torch.empty(-(-c // 1024) + 1, **i32)
+    pos = torch.empty(e, **i32)
+    w_vals = torch.empty((S, e), dtype=torch.float32, device=dev)
+    w_sizes = torch.empty(e, **i32)
+    w_slots = torch.empty(e, **i32)
+    _launch("kl_exchange_window", values_t.data_ptr(), values_t.stride(0), S,
+            c, sizes.data_ptr(), slots.data_ptr(), e, int(rot),
+            offs.data_ptr(), pos.data_ptr(), w_vals.data_ptr(),
+            w_sizes.data_ptr(), w_slots.data_ptr())
+    launches["exchange_window"] += 1
+    return pos, w_vals, w_sizes, w_slots
+
+
+def exchange_fold_plain(m_vals, m_sizes, m_mi, m_scs, w_slots, pos, values_t,
+                        sizes, slots, mi, parent, base: int):
+    c0_loc, c = parent.shape[0], sizes.shape[0]
+    li = slots.long() - base
+    ok = (mi >= 0) & (li >= 0) & (li < c0_loc)
+    parent[li[ok]] = mi[ok]
+    gi = m_scs.long() - base
+    mine = (m_scs >= 0) & (gi >= 0) & (gi < c0_loc)
+    inv = torch.full((c0_loc,), -1, dtype=torch.int64, device=parent.device)
+    inv[gi[mine]] = torch.arange(m_scs.shape[0],
+                                 device=parent.device)[mine]
+    wi = w_slots.long() - base
+    keep = (pos < c) & (w_slots >= 0) & (wi >= 0) & (wi < c0_loc)
+    dst, p = wi[keep], pos[keep].long()
+    q = inv[dst]
+    r_mi = m_mi[q]
+    parent[dst[r_mi >= 0]] = r_mi[r_mi >= 0]
+    sizes[p] = m_sizes[q]
+    values_t[:, p] = m_vals[:, q]
+
+
+def exchange_fold(m_vals: torch.Tensor, m_sizes: torch.Tensor,
+                  m_mi: torch.Tensor, m_scs: torch.Tensor,
+                  w_slots: torch.Tensor, pos: torch.Tensor,
+                  values_t: torch.Tensor, sizes: torch.Tensor,
+                  slots: torch.Tensor, mi: torch.Tensor, parent: torch.Tensor,
+                  base: int) -> None:
+    """Fold one exchange back into this rank's state, in place.
+
+    The global phase's result in its sorted positions (values f32 [S, n]
+    contiguous; sizes, merged_into, slots int32 [n]), this rank's window
+    (slots int32 [e] and pos int32 [e] from :func:`exchange_window`), the
+    state after the local phase (values f32 [S, c] with contiguous rows,
+    sizes, slots, merged_into int32 [c]) and the parent shard (int32
+    [c0_loc], slot ``base + i`` at i). Sets parent[slot − base] for every
+    merge of the local phase and every global merge of this rank's slots,
+    and writes each window entry's merged size and values over its column
+    ``pos``; padding entries (pos = c) and other ranks' slots are dropped.
+    """
+    if not _on_cuda(m_vals, m_sizes, m_mi, m_scs, w_slots, pos, values_t,
+                    sizes, slots, mi, parent):
+        exchange_fold_plain(m_vals, m_sizes, m_mi, m_scs, w_slots, pos,
+                            values_t, sizes, slots, mi, parent, base)
+        return
+    _check(m_vals, torch.float32, "m_vals", 2)
+    _check(values_t, torch.float32, "values_t", 2)
+    if not m_vals.is_contiguous():
+        raise ValueError("m_vals must be contiguous")
+    for name, t in (("m_sizes", m_sizes), ("m_mi", m_mi), ("m_scs", m_scs),
+                    ("w_slots", w_slots), ("pos", pos), ("sizes", sizes),
+                    ("slots", slots), ("mi", mi), ("parent", parent)):
+        _check(t, torch.int32, name)
+    S, n = m_vals.shape
+    c, e = values_t.shape[1], w_slots.shape[0]
+    if (values_t.shape[0] != S or pos.shape[0] != e
+            or any(t.shape[0] != n for t in (m_sizes, m_mi, m_scs))
+            or any(t.shape[0] != c for t in (sizes, slots, mi))):
+        raise ValueError("exchange_fold: inconsistent shapes")
+    c0_loc = parent.shape[0]
+    inv = torch.empty(c0_loc, dtype=torch.int32, device=parent.device)
+    _launch("kl_exchange_fold", m_vals.data_ptr(), S, n, m_sizes.data_ptr(),
+            m_mi.data_ptr(), m_scs.data_ptr(), w_slots.data_ptr(),
+            pos.data_ptr(), e, values_t.data_ptr(), values_t.stride(0), c,
+            sizes.data_ptr(), slots.data_ptr(), mi.data_ptr(),
+            parent.data_ptr(), int(base), c0_loc, inv.data_ptr())
+    launches["exchange_fold"] += 1

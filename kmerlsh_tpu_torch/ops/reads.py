@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmerlsh_tpu.kmer import codec
+from kmerlsh_tpu_torch.kmer import codec
 
 READS_CAP = 1 << 16          # reads per part (utils/fastq.h:36 contract)
 

@@ -1,0 +1,447 @@
+"""Sharded clustering over the ranks of a process group (port of
+kmerlsh_tpu/parallel/dist.py).
+
+Each rank holds a column shard of the state (values f32 [S, c_loc], sizes,
+slots) and the parent forest of its original slots [rank·c0_loc,
+(rank+1)·c0_loc). One iteration, run eagerly on every rank:
+
+  1. **local phase**: the rank's shard is hashed against the replicated
+     hyperplanes (``lsh_keys``), sorted and chain-collapsed (``permute_state``,
+     ``chain_collapse``), exactly as a single-device iteration;
+  2. **exchange**: the ``exchange_window`` kernel takes a fixed window of
+     ``e`` alive survivors, rotating with the iteration so that every
+     survivor is exchanged within ⌈alive/e⌉ iterations, and ONE all_gather
+     moves (values, sizes, slots) of every rank's window: D·e·(S + 2)
+     elements, independent of the row count;
+  3. **global phase**: every rank collapses the D·e gathered columns
+     identically, and the ``exchange_fold`` kernel folds this rank's local
+     and global merges into its parent shard and writes its window back.
+
+The host reads the global alive count after every iteration (it sets the
+next iteration's h) and takes the reference's decisions at its program
+boundaries only: after ``HEAD_ITERS`` iterations, then after chunks of
+``MID_CHUNK`` (or all that remain once the shard capacity is at most
+``SMALL_LOCAL_CAP``), shrinking capacity there by ``engine.compact_sort``.
+Once the global alive count fits ``HANDOFF_CAP`` the rest of the anneal
+runs on every rank's device as one single-device session (``engine.cluster``)
+over all survivors; a one-rank mesh runs the whole anneal sharded. Roots are
+resolved on the host, as in the reference.
+
+Every rank computes the same clustering: the collectives deliver the same
+data everywhere, and the kernels are deterministic.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from kmerlsh_tpu_torch import kernels
+from kmerlsh_tpu_torch.cluster import engine
+from kmerlsh_tpu_torch.cluster.groups import Groups
+from kmerlsh_tpu_torch.ops import rng
+from kmerlsh_tpu_torch.parallel.mesh import Mesh, make_mesh
+from kmerlsh_tpu_torch.parallel.multihost import gather_np
+
+EXCHANGE_CAP = 4096   # survivor summaries exchanged per rank per iteration
+
+# wall-clock split of the most recent sharded session, with the
+# single-device tail's own split folded in:
+#   device_seconds, pull_seconds, pull_bytes, programs — as engine's;
+#   sharded_iterations — iterations run sharded (the tail starts there);
+#   alive — the global alive count then;
+#   tail — "handoff", "terminal" or None;  gathered — elements the
+#   exchanges gathered on this rank;  exchanges — their number
+LAST_SESSION: dict = {}
+
+HEAD_ITERS = 3        # iterations before the first host decision
+MID_CHUNK = 4         # iterations per chunk thereafter
+SMALL_LOCAL_CAP = 1 << 13  # at or below this shard capacity, run the rest
+HANDOFF_CAP = 1 << 22   # once the global alive count fits this, the anneal
+                        # tail runs single-device (exact one-device merge
+                        # semantics), as in the reference
+TERMINAL_ITERS = 5   # = the reference's per-merge-round iteration count
+                     # (Cluster(..., iters=5), app/kmerLSH.cc:375-387); only
+                     # used when survivors never fit the handoff
+
+
+def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
+                        n_alive: int, planes, threshold: float, it: int,
+                        e: int, c0_loc: int):
+    """One sharded iteration. Returns (values_t, sizes, slots, global alive
+    count); ``parent`` is updated in place."""
+    h = engine._active_h_of(n_alive)               # from the GLOBAL count
+
+    # ---- local phase: hash + single-pass chain collapse on my shard ----
+    key, _ = kernels.lsh_keys(values_t, sizes, planes, h)
+    skey, order = torch.sort(key, stable=True)
+    sv, ss, sl = kernels.permute_state(values_t, sizes, slots, order)
+    values_t, sizes, slots, mi = kernels.chain_collapse(sv, ss, sl, skey,
+                                                        threshold, h)
+
+    # ---- exchange: a rotating window of e alive survivors ----
+    pos, w_vals, w_sizes, w_slots = kernels.exchange_window(
+        values_t, sizes, slots, e, it)
+    s = values_t.shape[0]
+    packed = torch.cat([w_vals.view(torch.int32), w_sizes[None],
+                        w_slots[None]])                          # [S+2, e]
+    g = mesh.all_gather(packed, dim=1)                           # [S+2, D·e]
+    g_vals, g_sizes, g_slots = g[:s].view(torch.float32), g[s], g[s + 1]
+
+    # ---- global phase: replicated merge of the gathered summaries ----
+    gkey, _ = kernels.lsh_keys(g_vals, g_sizes, planes, h)
+    gskey, gorder = torch.sort(gkey, stable=True)
+    gv, gs, gsl = kernels.permute_state(g_vals, g_sizes, g_slots, gorder)
+    m_vals, m_sizes, m_scs, m_mi = kernels.chain_collapse(gv, gs, gsl, gskey,
+                                                          threshold, h)
+    kernels.exchange_fold(m_vals, m_sizes, m_mi, m_scs, w_slots, pos,
+                          values_t, sizes, slots, mi, parent,
+                          mesh.rank * c0_loc)
+    return values_t, sizes, slots, mesh.all_sum(int((sizes > 0).sum()))
+
+
+def _local_cap(n: int, n_dev: int) -> int:
+    """Per-rank capacity: a power of two of at least 512 per shard,
+    n_dev · cap ≥ n."""
+    per = -(-n // n_dev)
+    return max(512, 1 << math.ceil(math.log2(max(per, 1))))
+
+
+def _slice_to(values_t, sizes, slots, new_c: int):
+    values_t, sizes, slots = engine.compact_sort(values_t, sizes, slots)
+    return values_t[:, :new_c], sizes[:new_c], slots[:new_c]
+
+
+def _drive(mesh: Mesh, values_t, sizes, slots, parent, thresholds, seed: int,
+           e: int, verbose: bool):
+    """The host loop: the head iterations, then chunks with capacity
+    shrinking, then the final compaction and the pull of every rank's shard.
+    Returns ((values_t [S, D·Cf], sizes, slots, parent [D·c0], n_alive) as
+    NumPy, the un-run rest of the schedule)."""
+    thr = np.asarray(thresholds, np.float32)
+    total = len(thr)
+    s, c0_loc = values_t.shape[0], parent.shape[0]
+    dev = values_t.device
+    sync = engine._sync_for(dev)
+    gathered0 = mesh.gathered
+    LAST_SESSION["exchanges"] = 0
+    na = mesh.all_sum(int((sizes > 0).sum()))
+
+    def run(tag: str, lo: int, hi: int) -> None:
+        nonlocal values_t, sizes, slots, na
+        t0 = time.perf_counter()
+        for it in range(lo, hi):
+            planes = rng.draw_hyperplanes(seed, it, s).to(dev)
+            values_t, sizes, slots, na = _one_dist_iteration(
+                mesh, values_t, sizes, slots, parent, na, planes,
+                float(thr[it]), it, e, c0_loc)
+        sync()
+        dt = time.perf_counter() - t0
+        LAST_SESSION["device_seconds"] += dt
+        LAST_SESSION["programs"].append((tag, round(dt, 4)))
+        LAST_SESSION["exchanges"] += hi - lo
+
+    head_k = min(total, HEAD_ITERS)
+    run(f"dist_head[{head_k}]", 0, head_k)
+    it = head_k
+    max_alive = mesh.all_max(int((sizes > 0).sum()))
+    c_loc = sizes.shape[0]
+    if verbose:
+        print(f"[dist] head ({head_k} iters): {na} clusters")
+
+    while it < total and (na > HANDOFF_CAP or mesh.size == 1):
+        new_c = min(c_loc, _local_cap(max(max_alive, 1), 1))
+        if new_c < c_loc:
+            values_t, sizes, slots = _slice_to(values_t, sizes, slots, new_c)
+            c_loc = new_c
+        c = total - it if c_loc <= SMALL_LOCAL_CAP else min(MID_CHUNK,
+                                                            total - it)
+        run(f"dist_chunk[{c}]@{c_loc}", it, it + c)
+        max_alive = mesh.all_max(int((sizes > 0).sum()))
+        it += c
+        if verbose:
+            print(f"[dist] iter {it}: {na} clusters")
+
+    LAST_SESSION["gathered"] = mesh.gathered - gathered0
+    LAST_SESSION["sharded_iterations"] = it
+    LAST_SESSION["alive"] = na
+    fin_c = min(c_loc, _local_cap(max(max_alive, 1), 1))
+    values_t, sizes, slots = _slice_to(values_t, sizes, slots, fin_c)
+    t0 = time.perf_counter()
+    pulled = (gather_np(values_t.contiguous(), mesh, dim=1),
+              gather_np(sizes, mesh), gather_np(slots, mesh),
+              gather_np(parent, mesh), na)
+    LAST_SESSION["pull_seconds"] += time.perf_counter() - t0
+    LAST_SESSION["pull_bytes"] += sum(a.nbytes for a in pulled[:4])
+    return pulled, thr[it:]
+
+
+def _group_by_roots(roots, alive_slots, alive_sizes, alive_vals_t):
+    """(centroids [K, S], sizes [K], members) from a row → root map and the
+    alive clusters' (slot, size, centroid) columns, clusters ordered by
+    smallest member, members ascending (copy of the reference's
+    cluster/engine.py _group_by_roots)."""
+    s = alive_vals_t.shape[0]
+    if len(alive_slots) == 0:
+        return engine._empty(s)
+    order = np.argsort(roots, kind="stable")
+    sr = roots[order]
+    starts = np.flatnonzero(np.r_[True, sr[1:] != sr[:-1]])
+    uniq = sr[starts]
+    glens = np.diff(np.r_[starts, len(sr)])
+
+    gidx = np.searchsorted(uniq, alive_slots)   # every alive slot is a root
+    first_member = order[starts[gidx]]
+    cl_order = np.argsort(first_member, kind="stable")
+    gsel = gidx[cl_order]
+
+    centroids = np.ascontiguousarray(alive_vals_t[:, cl_order].T,
+                                     dtype=np.float32)
+    out_sizes = alive_sizes[cl_order].astype(np.int64)
+    lens = glens[gsel]
+    offs = np.r_[0, np.cumsum(lens)]
+    pos = np.repeat(starts[gsel] - offs[:-1], lens) + np.arange(offs[-1])
+    return centroids, out_sizes, Groups(order[pos].astype(np.int64), offs)
+
+
+def _assemble(values_t, sizes, slots, parent, n_rows: int, device,
+              extra_thresholds=None, seed: int = 0, verbose: bool = False):
+    """Root resolution and membership assembly on the host (the contract of
+    engine.cluster: clusters ordered by smallest member id).
+
+    ``extra_thresholds`` first runs a single-device session over all
+    survivors on ``device``: the handed-off rest of the anneal, or the
+    terminal rounds when survivors never fit the handoff; its groups are
+    composed into the row roots."""
+    r = parent.astype(np.int64)
+    while True:
+        nr = r[r]
+        if np.array_equal(nr, r):
+            break
+        r = nr
+    roots = r[:len(parent)]
+
+    alive = np.flatnonzero((sizes > 0) & (slots < n_rows))
+    al_slots = slots[alive].astype(np.int64)
+    al_sizes = sizes[alive]
+    al_vals = values_t[:, alive]
+
+    if extra_thresholds is None or not len(extra_thresholds) \
+            or len(alive) <= 1:
+        return _group_by_roots(roots[:n_rows], al_slots, al_sizes, al_vals)
+
+    thr = np.asarray(extra_thresholds, np.float32)
+    cents, tsizes, members = engine.cluster(
+        al_vals.T, sizes=al_sizes.astype(np.int32), thresholds=thr, seed=seed,
+        verbose=verbose, device=device)
+    for k in ("device_seconds", "pull_seconds", "pull_bytes"):
+        LAST_SESSION[k] += engine.LAST_SESSION[k]
+    LAST_SESSION["programs"].extend(
+        ("tail_" + t, d) for t, d in engine.LAST_SESSION["programs"])
+    if verbose:
+        print(f"[dist] single-device tail ({len(thr)} iters): "
+              f"{len(alive)} -> {len(members)} clusters")
+    # members groups alive indices; the group head (first member) slot
+    # absorbs the rest: compose the row roots through the tail's groups
+    flat, offs = members.flat, members.offsets
+    heads = flat[offs[:-1]]
+    to_head = np.empty(len(alive), np.int64)
+    to_head[flat] = np.repeat(heads, members.sizes)
+    order = np.argsort(al_slots, kind="stable")
+    sorted_slots = al_slots[order]
+    ridx = np.minimum(np.searchsorted(sorted_slots, roots[:n_rows]),
+                      len(alive) - 1)
+    is_alive_root = sorted_slots[ridx] == roots[:n_rows]
+    final_roots = np.where(is_alive_root, al_slots[to_head[order[ridx]]],
+                           roots[:n_rows])
+    return _group_by_roots(final_roots, al_slots[heads],
+                           tsizes.astype(al_sizes.dtype),
+                           np.ascontiguousarray(cents.T))
+
+
+def _tail_schedule(rest: np.ndarray, thresholds, mesh: Mesh):
+    """The single-device tail after the sharded prefix: the handed-off rest
+    of the anneal, else terminal rounds at the final threshold (meshes of
+    more than one rank only)."""
+    if mesh.size <= 1:
+        return None
+    if len(rest):
+        return rest
+    return np.full(TERMINAL_ITERS, float(np.asarray(thresholds)[-1]),
+                   np.float32)
+
+
+def _reset_session() -> None:
+    LAST_SESSION.clear()
+    LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
+                        programs=[], tail=None)
+
+
+def _run(mesh: Mesh, values_t, sizes, n_rows: int, thresholds, seed: int,
+         exchange_cap: int, verbose: bool):
+    """The session from a rank's initial shard (values [S, c], sizes [c])."""
+    c = values_t.shape[1]
+    slots = torch.arange(c, dtype=torch.int32, device=values_t.device) \
+        + mesh.rank * c
+    parent = slots.clone()
+    pulled, rest = _drive(mesh, values_t, sizes, slots, parent, thresholds,
+                          seed, exchange_cap, verbose)
+    extra = _tail_schedule(rest, thresholds, mesh)
+    if extra is not None:
+        LAST_SESSION["tail"] = "handoff" if len(rest) else "terminal"
+    return _assemble(*pulled[:4], n_rows=n_rows, device=mesh.device,
+                     extra_thresholds=extra, seed=seed + 99_991,
+                     verbose=verbose)
+
+
+def shard_cols(mesh: Mesh, array: np.ndarray) -> torch.Tensor:
+    """This rank's block of the LAST axis of ``array`` (length divisible by
+    the mesh size) on the mesh's device: the layout of the sample-major
+    [S, N] matrices."""
+    n = array.shape[-1] // mesh.size
+    part = np.ascontiguousarray(array[..., mesh.rank * n:(mesh.rank + 1) * n])
+    return torch.from_numpy(part).to(mesh.device)
+
+
+def shard_rows(mesh: Mesh, array: np.ndarray) -> torch.Tensor:
+    """This rank's block of the FIRST axis of ``array`` (length divisible by
+    the mesh size) on the mesh's device."""
+    n = array.shape[0] // mesh.size
+    part = np.ascontiguousarray(array[mesh.rank * n:(mesh.rank + 1) * n])
+    return torch.from_numpy(part).to(mesh.device)
+
+
+def upload_counts_sharded(counts: np.ndarray, mesh: Mesh):
+    """Pad a uint16 [S, N] count matrix (the same on every rank) to the
+    sharded capacity and place this rank's columns on its device. Returns
+    (tensor [S, c_loc], N)."""
+    S, n = counts.shape
+    c_loc = _local_cap(n, mesh.size)
+    padded = np.zeros((S, mesh.size * c_loc), np.uint16)
+    padded[:, :n] = counts
+    return shard_cols(mesh, padded), n
+
+
+def upload_counts_process_local(bin_path: str, num_samples: int,
+                                kmap_size: int, mesh: Mesh):
+    """Each rank reads ONLY its own column slice of the sample-major
+    ``kmer_count.bin`` (ReadHT layout, io/ioHT.cc:65-66) onto its device:
+    the full matrix never lives in one process. Returns (tensor [S, c_loc],
+    N)."""
+    from kmerlsh_tpu_torch.io import counts as countsio
+
+    c_loc = _local_cap(kmap_size, mesh.size)
+    lo = mesh.rank * c_loc
+    local = np.zeros((num_samples, c_loc), np.uint16)
+    rlo, rhi = min(lo, kmap_size), min(lo + c_loc, kmap_size)
+    if rhi > rlo:
+        local[:, :rhi - rlo] = countsio.read_count_batch(
+            bin_path, num_samples, kmap_size, rlo, rhi - rlo)
+    return torch.from_numpy(local).to(mesh.device), kmap_size
+
+
+def shard_state_from_numpy(values_t, sizes, slots, parent, rank: int,
+                           world: int, device):
+    """This rank's shard of a global [S, D·c] state and [D·c0] parent
+    forest (NumPy, e.g. pulled from the reference), as the tensors of
+    :func:`engine.state_from_numpy` on ``device``."""
+    def block(a, r, n):
+        a = np.asarray(a)
+        k = a.shape[-1] // n
+        return a[..., r * k:(r + 1) * k]
+
+    return engine.state_from_numpy(
+        np.ascontiguousarray(block(values_t, rank, world)),
+        block(sizes, rank, world), block(slots, rank, world),
+        block(parent, rank, world), device)
+
+
+def cluster_counts_sharded(
+    counts,                      # uint16 [S, N] (np), or this rank's shard
+    v_kmers: np.ndarray,         # f32 [S] coverage offsets
+    thresholds: np.ndarray,      # f32 [I] anneal schedule
+    mesh: Mesh | None = None,
+    seed: int = 0,
+    exchange_cap: int = EXCHANGE_CAP,
+    verbose: bool = False,
+    n: int | None = None,        # real column count when counts is a shard
+):
+    """Sharded twin of ``engine.cluster_counts``: the abundance transform
+    on this rank's shard, the schedule sharded over ``mesh``. Same output
+    contract, the same on every rank. ``counts`` may be this rank's shard
+    [S, c_loc] from :func:`upload_counts_process_local` (with ``n``)."""
+    mesh = mesh or make_mesh()
+    if isinstance(counts, torch.Tensor):
+        if n is None:
+            raise ValueError("pass n (the real column count) with a shard")
+        local = counts
+    else:
+        if counts.shape[1] == 0:
+            return engine._empty(counts.shape[0])
+        local, n = upload_counts_sharded(counts, mesh)
+    _reset_session()
+    t0 = time.perf_counter()
+    v = torch.as_tensor(np.asarray(v_kmers, np.float32), device=local.device)
+    values_t, sizes = kernels.abundance_transform(local, v)
+    engine._sync_for(local.device)()
+    dt = time.perf_counter() - t0
+    LAST_SESSION["device_seconds"] += dt
+    LAST_SESSION["programs"].append((f"transform@{local.shape[1]}",
+                                     round(dt, 4)))
+    return _run(mesh, values_t, sizes, n, thresholds, seed, exchange_cap,
+                verbose)
+
+
+def cluster_sharded(
+    values,
+    sizes=None,
+    mesh: Mesh | None = None,
+    min_similarity: float = 0.8,
+    iterations: int = 100,
+    seed: int = 0,
+    thresholds: np.ndarray | None = None,
+    exchange_cap: int = EXCHANGE_CAP,
+    verbose: bool = False,
+):
+    """Sharded version of ``engine.cluster``: the same annealed loop (0.95 →
+    min_similarity over ``iterations``, or ``thresholds``), the rows of
+    ``values`` [N, S] (the same on every rank) sharded over ``mesh``. Same
+    output contract, the same on every rank."""
+    mesh = mesh or make_mesh()
+    values = np.asarray(values, dtype=np.float32)
+    n, s = values.shape
+    if n == 0:
+        return engine._empty(s)
+    if thresholds is None:
+        sim_step = (0.95 - min_similarity) / iterations
+        thresholds = (0.95 - sim_step * np.arange(iterations)).astype(
+            np.float32)
+    c_loc = _local_cap(n, mesh.size)
+    host_vals = np.zeros((s, mesh.size * c_loc), np.float32)
+    host_vals[:, :n] = values.T
+    host_sizes = np.zeros(mesh.size * c_loc, np.int32)
+    host_sizes[:n] = (np.asarray(sizes, np.int32) if sizes is not None
+                      else np.ones(n, np.int32))
+    _reset_session()
+    return _run(mesh, shard_cols(mesh, host_vals),
+                shard_cols(mesh, host_sizes), n, thresholds, seed,
+                exchange_cap, verbose)
+
+
+def sharded_wrs(mesh: Mesh, n1: int, n2: int, pval_thresh: float,
+                size_thresh: int):
+    """Cluster-sharded WRS verdicts: each rank tests its row shard of the
+    clusters (``wrs_verdicts``); gathering the verdicts is the only
+    collective. Returns fn(values shard [N/D, ≥ n1+n2], sizes shard [N/D])
+    → int8 verdicts [N] (NumPy) on every rank."""
+    def step(values: torch.Tensor, sizes: torch.Tensor) -> np.ndarray:
+        verdict, _, _ = kernels.wrs_verdicts(
+            values.to(torch.float32).contiguous(),
+            sizes.to(torch.int32).contiguous(), n1, n2, pval_thresh,
+            size_thresh)
+        return gather_np(verdict.to(torch.int32), mesh).astype(np.int8)
+
+    return step

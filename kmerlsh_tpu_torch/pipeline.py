@@ -6,12 +6,18 @@ artifacts, so the two packages can restart from each other's files.
 
   K: per-sample KMC database            (external kmc or native counter)
   B: kmer_set.hex + kmer_count.bin + kmer_count.log
-  C: <clust_file>{,.clust} from one single-batch session on ``device``
-  E: the t-test of every cluster on ``device``, then
+  C: <clust_file>{,.clust} from one single-batch session on ``device``, or
+     sharded over the ranks of a multi-process run (parallel/dist.py)
+  E: the t-test of every cluster on ``device`` (cluster-sharded over the
+     ranks of a multi-process run), then
      <output1>_<basename>, <output2>_<basename> extracted FASTQ
 
+Multi-process runs (parallel/multihost.py): every rank computes the same
+clustering; rank 0 alone writes shared artifacts, behind barriers;
+per-sample work (K, E's extraction) is split round-robin over the ranks.
+
 Not ported yet, and refused before any work starts: the out-of-core batch
-rounds (a matrix of more than ``batch_thresh`` rows) and multi-process runs.
+rounds (a matrix of more than ``batch_thresh`` rows).
 """
 
 from __future__ import annotations
@@ -24,17 +30,29 @@ import threading
 import numpy as np
 import torch
 
-from kmerlsh_tpu.config import HyperParams
-from kmerlsh_tpu.utils.timing import Stages
+from kmerlsh_tpu_torch.config import HyperParams
+from kmerlsh_tpu_torch.utils.timing import Stages
 from kmerlsh_tpu_torch.cluster.groups import Groups, as_groups
 from kmerlsh_tpu_torch.io import (clusterio, counts as countsio,
                                   fastq as fastqio, kmc as kmcio)
 from kmerlsh_tpu_torch.io.samples import get_input
 from kmerlsh_tpu_torch.ops import reads as readops, ttest
+from kmerlsh_tpu_torch.parallel import multihost
 
-# (path, mtime_ns, size, S, kmap_size, device) → (device counts [S, N], N);
-# one entry: re-clustering the same matrix skips the read and the upload
+# (path, mtime_ns, size, S, kmap_size, device, rank, ranks) → (device counts
+# [S, N] or this rank's shard, N); one entry: re-clustering the same matrix
+# skips the read and the upload
 _DEVICE_COUNTS_CACHE: dict = {}
+
+
+def _mesh_or_none(device):
+    """The row mesh over the ranks of a multi-process run, this rank on
+    ``device``; None for a single process."""
+    if multihost.process_count() > 1:
+        from kmerlsh_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(device)
+    return None
 
 
 def _fused_single_batch(
@@ -42,23 +60,31 @@ def _fused_single_batch(
     device,
 ) -> tuple[np.ndarray, Groups]:
     """Single-batch mode C: transform → one deep init iteration at 0.95 →
-    the I-step anneal → finalize, as one engine session on ``device``."""
+    the I-step anneal → finalize, as one engine session on ``device``; in
+    a multi-process run, one sharded session over the ranks, each reading
+    only its own columns of the count matrix."""
     from kmerlsh_tpu_torch.cluster import engine
+    from kmerlsh_tpu_torch.parallel import dist
 
     bin_path = os.path.join(params.work_dir, countsio.BIN_NAME)
     S = len(v_kmers)
     v = np.asarray(v_kmers, np.float32)
     dev = torch.device(device)
+    mesh = _mesh_or_none(dev)
     st = os.stat(bin_path)
     cache_key = (os.path.abspath(bin_path), st.st_mtime_ns, st.st_size, S,
-                 kmap_size, str(dev))
+                 kmap_size, str(dev), mesh and (mesh.rank, mesh.size))
     with stages.stage("read_batch"):
         cached = _DEVICE_COUNTS_CACHE.get(cache_key)
         if cached is None:
             _DEVICE_COUNTS_CACHE.clear()   # hold at most one matrix
-            cmat = countsio.read_count_batch(bin_path, S, kmap_size, 0,
-                                             kmap_size)
-            cached = engine.upload_counts(cmat, dev)
+            if mesh is not None:
+                cached = dist.upload_counts_process_local(
+                    bin_path, S, kmap_size, mesh)
+            else:
+                cmat = countsio.read_count_batch(bin_path, S, kmap_size, 0,
+                                                 kmap_size)
+                cached = engine.upload_counts(cmat, dev)
             _DEVICE_COUNTS_CACHE[cache_key] = cached
         counts, n = cached
 
@@ -68,22 +94,27 @@ def _fused_single_batch(
         [0.95],                                   # init pass (kmerLSH.cc:487)
         0.95 - sim_step * np.arange(i),           # final anneal
     ]).astype(np.float32)
-    cents, _, groups = engine.cluster_counts(
-        counts, v, schedule, seed=params.seed, verbose=params.verbose, n=n)
+    if mesh is not None:
+        cents, _, groups = dist.cluster_counts_sharded(
+            counts, v, schedule, mesh=mesh, seed=params.seed,
+            verbose=params.verbose, n=n)
+        session = dist.LAST_SESSION     # the single-device tail folded in
+    else:
+        cents, _, groups = engine.cluster_counts(
+            counts, v, schedule, seed=params.seed, verbose=params.verbose,
+            n=n)
+        session = engine.LAST_SESSION
     for key in ("device_seconds", "pull_seconds"):
-        stages.times[key] = engine.LAST_SESSION[key]
-    stages.record("pull_bytes", int(engine.LAST_SESSION["pull_bytes"]))
+        stages.times[key] = session[key]
+    stages.record("pull_bytes", int(session["pull_bytes"]))
     return cents, groups
 
 
 def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
     """The pipeline (= ``kmerCluster``, app/kmerLSH.cc:432-603), clustering
     and testing clusters on ``device``."""
-    global LAST_VERDICTS
-    if params.num_processes > 1 or params.coordinator:
-        raise NotImplementedError(
-            "multi-process runs are not ported to kmerlsh_tpu_torch yet")
-    stages = Stages(params.verbose)
+    global LAST_VERDICTS, LAST_STAGES
+    stages = LAST_STAGES = Stages(params.verbose)
     samples1, kmc_names1 = get_input(params.input1)
     samples2, kmc_names2 = get_input(params.input2)
     samples = samples1 + samples2
@@ -97,14 +128,23 @@ def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
 
     if params.kmc:
         with stages.stage("K_kmc"):
-            for fq, name in zip(samples, kmc_names):
+            # per-sample counting splits round-robin across ranks
+            for fq, name in multihost.my_items(list(zip(samples, kmc_names))):
                 kmcio.run_kmc(fq, name, params.k, params.count_min,
                               params.threads_to_use, params.max_memory,
                               params.work_dir, params.verbose)
+            multihost.barrier("K_kmc")
     if params.bin:
         with stages.stage("B_bin"):
-            kmap_size, v_kmers = countsio.build_count_matrix(
-                kmc_names, params.k, params.work_dir, params.verbose)
+            # shared artifacts (hex/bin/log) are written by rank 0 only
+            if multihost.proc0():
+                kmap_size, v_kmers = countsio.build_count_matrix(
+                    kmc_names, params.k, params.work_dir, params.verbose)
+            multihost.barrier("B_bin")
+            if not multihost.proc0():
+                kmap_size, covs = countsio.read_log(
+                    os.path.join(params.work_dir, countsio.LOG_NAME))
+                v_kmers = [c / kmap_size for c in covs]
 
     clust_path = params.clust_file_name
 
@@ -122,10 +162,12 @@ def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
             cents, final_ids = _fused_single_batch(
                 params, kmap_size, v_kmers, stages, device)
         with stages.stage("C_save"):
-            clusterio.save_result(final_ids, clust_path + ".clust",
-                                  ignore_small=params.ignore_small)
-            clusterio.save_binary(cents, final_ids, clust_path,
-                                  ignore_small=params.ignore_small)
+            if multihost.proc0():
+                clusterio.save_result(final_ids, clust_path + ".clust",
+                                      ignore_small=params.ignore_small)
+                clusterio.save_binary(cents, final_ids, clust_path,
+                                      ignore_small=params.ignore_small)
+            multihost.barrier("C_save")
         stages.record("clusters", int(np.sum(
             as_groups(final_ids).sizes > params.ignore_small)))
 
@@ -133,9 +175,22 @@ def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
         with stages.stage("E_wrs"):
             values, ids_list = clusterio.read_cluster_all(
                 clust_path, len(samples))
-            verdicts = ttest.wrs_verdicts(
-                values, ids_list.sizes, n1, n2, params.pval_thresh,
-                params.size_thresh, device)
+            sizes = ids_list.sizes
+            mesh = _mesh_or_none(device)
+            if mesh is not None and len(ids_list) >= mesh.size:
+                from kmerlsh_tpu_torch.parallel import dist
+
+                pad = -len(ids_list) % mesh.size
+                vp = np.pad(values.astype(np.float32), ((0, pad), (0, 0)))
+                sp = np.pad(sizes.astype(np.int32), (0, pad))
+                fn = dist.sharded_wrs(mesh, n1, n2, params.pval_thresh,
+                                      params.size_thresh)
+                verdicts = fn(dist.shard_rows(mesh, vp),
+                              dist.shard_rows(mesh, sp))[:len(ids_list)]
+            else:
+                verdicts = ttest.wrs_verdicts(
+                    values, sizes, n1, n2, params.pval_thresh,
+                    params.size_thresh, device)
         LAST_VERDICTS = verdicts
         keys = countsio.read_hex(os.path.join(params.work_dir,
                                               countsio.HEX_NAME))
@@ -164,9 +219,11 @@ def diff_key_sets(keys: np.ndarray, ids_list: Groups,
 
 
 # the verdicts (int8 per cluster of the clustering file) of the most recent
-# mode-E run, and the name of the scorer the most recent _pick_scorer call
-# selected ("native" / "device" / "host"): what a caller checking a run reads
+# mode-E run, the stages of the most recent run, and the name of the scorer
+# the most recent _pick_scorer call selected ("native" / "device" /
+# "host"): what a caller checking a run reads
 LAST_VERDICTS: np.ndarray | None = None
+LAST_STAGES: Stages | None = None
 LAST_SCORER: str | None = None
 
 
@@ -215,7 +272,8 @@ def _extract_group(
     params: HyperParams, device="cuda",
 ) -> None:
     """= ``IOFQ::Extracting`` (io/ioFastQ.cc:161-195): one output file per
-    sample named ``{out_prefix}_{basename(sample)}``.
+    sample named ``{out_prefix}_{basename(sample)}``. Multi-process: the
+    samples are split round-robin across ranks.
 
     Pipelined three ways: a producer thread parses the next part while the
     current one scores, and with the device scorer part i+1 is dispatched
@@ -224,7 +282,7 @@ def _extract_group(
     score = _pick_scorer(params, device)
     if params.verbose:
         print(f"read scorer: {LAST_SCORER}")
-    for path in sample_files:
+    for path in multihost.my_items(sample_files):
         out = f"{out_prefix}_{os.path.basename(path)}"
         if params.verbose:
             print(f"writing to {out}")

@@ -1,7 +1,7 @@
 """Synthetic fixtures.
 
-``generate`` is kmerlsh_tpu.testdata's (which imports no JAX): two-group
-FASTQs with planted differential markers. ``python -m
+``generate`` (a copy of kmerlsh_tpu.testdata's, the same files from the same
+seed): two-group FASTQs with planted differential markers. ``python -m
 kmerlsh_tpu_torch.testdata <dir>`` writes the FASTQs plus the two-column
 sample lists (``groupA.txt`` / ``groupB.txt``).
 
@@ -19,11 +19,72 @@ import sys
 
 import numpy as np
 
-from kmerlsh_tpu.kmer import codec
-from kmerlsh_tpu.testdata import generate
+from kmerlsh_tpu_torch.kmer import codec
 
 __all__ = ["generate", "wrs_rows", "read_part", "window_keys", "marker_keys",
            "write_hex", "write_source_fastqs"]
+
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def _rand_seq(rng, n: int) -> str:
+    return bytes(BASES[rng.integers(0, 4, size=n)]).decode()
+
+
+def _reads_from(rng, seq: str, n_reads: int, read_len: int) -> list[str]:
+    out = []
+    for _ in range(n_reads):
+        start = int(rng.integers(0, max(len(seq) - read_len, 1)))
+        out.append(seq[start : start + read_len])
+    return out
+
+
+def generate(
+    out_dir: str,
+    samples_per_group: int = 2,
+    n_background: int = 20,
+    n_markers: int = 3,
+    background_len: int = 400,
+    marker_len: int = 300,
+    read_len: int = 100,
+    background_reads: int = 400,
+    marker_reads: int = 300,
+    seed: int = 1234,
+) -> dict:
+    """Returns a manifest dict with file paths and the planted marker
+    sequences per group."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    background = [_rand_seq(rng, background_len) for _ in range(n_background)]
+    markers = {
+        "A": [_rand_seq(rng, marker_len) for _ in range(n_markers)],
+        "B": [_rand_seq(rng, marker_len) for _ in range(n_markers)],
+    }
+
+    manifest = {"markers": markers, "samples": {"A": [], "B": []},
+                "lists": {}}
+    for group in ("A", "B"):
+        list_path = os.path.join(out_dir, f"group{group}.txt")
+        with open(list_path, "w") as lf:
+            for s in range(samples_per_group):
+                fq = os.path.join(out_dir, f"g{group}_s{s}.fastq")
+                db = os.path.join(out_dir, f"db{group}{s}")
+                reads: list[str] = []
+                for _ in range(background_reads):
+                    src = background[int(rng.integers(0, n_background))]
+                    reads += _reads_from(rng, src, 1, read_len)
+                for m in markers[group]:
+                    reads += _reads_from(rng, m, marker_reads // n_markers,
+                                         read_len)
+                rng.shuffle(reads)
+                with open(fq, "w") as f:
+                    for i, r in enumerate(reads):
+                        f.write(f"@g{group}s{s}r{i}\n{r}\n+\n{'I' * len(r)}\n")
+                lf.write(f"{fq} {db}\n")
+                manifest["samples"][group].append(fq)
+        manifest["lists"][group] = list_path
+    return manifest
 
 
 def wrs_rows(n: int, n1: int, n2: int, seed: int = 0):
@@ -146,6 +207,47 @@ def write_source_fastqs(work: str, src: np.ndarray, n_files: int,
         rec.tofile(path)
         paths.append(path)
     return paths
+
+
+def exchange_inputs(values_t, sizes, slots, merged_into, world: int,
+                    rank: int, e: int, seed: int = 0):
+    """The arguments of ``kernels.exchange_fold`` for ``rank`` of ``world``
+    ranks that all hold one local-phase result (values f32 [S, c]; sizes,
+    slots in [0, c) and merged_into int32 [c], tensors on one device), rank
+    d's slots and merges offset by d·c: every rank's window (rotation d),
+    gathered in rank order and collapsed by the global phase (``lsh_keys``,
+    the key sort, ``permute_state``, ``chain_collapse`` at 0.9), this
+    rank's window and a copy of its state, an identity parent shard and its
+    base. Runs through the kernel wrappers where the tensors lie."""
+    import torch
+
+    from kmerlsh_tpu_torch import kernels
+    from kmerlsh_tpu_torch.cluster import engine
+    from kmerlsh_tpu_torch.ops import rng
+
+    s, c = values_t.shape
+    wins, local = [], None
+    for d in range(world):
+        st = (values_t.clone(), sizes.clone(), slots + d * c,
+              torch.where(merged_into >= 0, merged_into + d * c, merged_into))
+        wins.append(kernels.exchange_window(st[0], st[1], st[2], e, d))
+        if d == rank:
+            local = st
+    g_vals = torch.cat([w[1] for w in wins], dim=1)
+    g_sizes = torch.cat([w[2] for w in wins])
+    g_slots = torch.cat([w[3] for w in wins])
+    h = engine._active_h_of(int((g_sizes > 0).sum()))
+    planes = rng.draw_hyperplanes(seed, 0, s).to(values_t.device)
+    key, _ = kernels.lsh_keys(g_vals, g_sizes, planes, h)
+    skey, order = torch.sort(key, stable=True)
+    gv, gs, gsl = kernels.permute_state(g_vals, g_sizes, g_slots, order)
+    m_vals, m_sizes, m_scs, m_mi = kernels.chain_collapse(gv, gs, gsl, skey,
+                                                          0.9, h)
+    parent = torch.arange(rank * c, (rank + 1) * c, dtype=torch.int32,
+                          device=values_t.device)
+    pos, w_slots = wins[rank][0], wins[rank][3]
+    return (m_vals, m_sizes, m_mi, m_scs, w_slots, pos, *local, parent,
+            rank * c)
 
 
 if __name__ == "__main__":

@@ -84,3 +84,30 @@ def test_build_names_the_failing_source(fake):
         build.build()
     assert not build.library_path().exists()
     assert os.listdir(build.BUILD_DIR) == []
+
+
+def test_concurrent_builds_leave_one_whole_library(fake):
+    """Ranks that start together each build in a directory of their own
+    and rename the finished library into place: every one gets the whole
+    library, and nothing else is left behind."""
+    import threading
+
+    fake({f"k{i}.cu": f"// kernel {i}\n" for i in range(3)})
+    got, errors = [], []
+
+    def rank():
+        try:
+            got.append(build.build())
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(got) == 4
+    assert {str(p) for p in got} == {str(build.library_path())}
+    lib = build.library_path()
+    assert sorted(lib.read_text().split()) == [f"k{i}.cu" for i in range(3)]
+    assert os.listdir(lib.parent) == [lib.name]

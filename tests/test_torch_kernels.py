@@ -168,3 +168,58 @@ def test_mode_e_wrappers_refuse_bad_input(dev):
         kernels.score_reads(codes, i32, i32, i32,
                             torch.zeros(4, dtype=torch.int32, device=dev),
                             15, 0.5)
+
+
+@pytest.mark.parametrize("n_alive", [0, 100, 4096, 30000])
+@pytest.mark.parametrize("rot", [0, 5])
+def test_exchange_window_exact(dev, n_alive, rot):
+    """n_local below, equal to and above e = 4096, and an all-padding
+    window; the values a column slice of a wider matrix."""
+    n, e = 1 << 16, 4096
+    r = np.random.default_rng(n_alive + rot)
+    sizes = np.zeros(n, np.int32)
+    sizes[r.choice(n, size=n_alive, replace=False)] = r.integers(
+        1, 9, size=n_alive)
+    sz = torch.from_numpy(sizes).to(dev)
+    sl = torch.from_numpy(r.permutation(n).astype(np.int32)).to(dev)
+    wide = torch.randn((S, n + 7), device=dev)
+    k = kernels.exchange_window(wide[:, :n], sz, sl, e, rot)
+    p = kernels.exchange_window_plain(wide[:, :n], sz, sl, e, rot)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert int((k[0] < n).sum()) == min(n_alive, e)
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_exchange_fold_exact(dev, rank):
+    n = 1 << 15
+    _, _, values, sizes = _state(n, dev, n_prof=64)
+    key, _ = kernels.lsh_keys(values, sizes,
+                              rng.draw_hyperplanes(3, 0, S).to(dev), 4)
+    skey, order = torch.sort(key, stable=True)
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    sv, ss, sl = kernels.permute_state(values, sizes, slots, order)
+    local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, 4)
+    (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
+     base) = testdata.exchange_inputs(*local, 4, rank, 1024)
+    assert int((glob[2] >= 0).sum()) > 0 and int((lmi >= 0).sum()) > 0
+    kv, ks, kp = lv.clone(), ls.clone(), parent.clone()
+    kernels.exchange_fold(*glob, w_slots, pos, kv, ks, lsl, lmi, kp, base)
+    pv, ps, pp = lv.clone(), ls.clone(), parent.clone()
+    kernels.exchange_fold_plain(*glob, w_slots, pos, pv, ps, lsl, lmi, pp,
+                                base)
+    for a, b in ((kv, pv), (ks, ps), (kp, pp)):
+        assert torch.equal(a, b)
+    assert not torch.equal(kp, parent)
+
+
+def test_exchange_wrappers_refuse_bad_input(dev):
+    sz = torch.ones(64, dtype=torch.int32, device=dev)
+    vals = torch.zeros((S, 64), device=dev)
+    with pytest.raises(ValueError):
+        kernels.exchange_window(vals, sz.long(), sz, 16, 0)
+    with pytest.raises(ValueError):
+        kernels.exchange_window(vals, sz, sz[:10], 16, 0)
+    i32 = torch.zeros(16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        kernels.exchange_fold(vals[:, :16], i32, i32, i32, i32[:4], i32[:4],
+                              vals, sz, sz, sz.long(), sz, 0)
