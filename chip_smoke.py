@@ -6,7 +6,8 @@ Phases:
   1. versions, and the card's name and power limit from nvidia-smi;
   2. build the CUDA kernels from kmerlsh_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the same CUDA inputs,
-     with both timed (CUDA events, median of 5 after a warm-up), beside its
+     with both timed (CUDA events around 10 back-to-back calls, median of
+     5 such runs after a warm-up), beside its
      bound (the bytes it must move over the card's memory rate, or its
      float32 operations over the card's rate, whichever is larger) and,
      where one PyTorch call computes the same function, that call's time:
@@ -14,14 +15,19 @@ Phases:
      local-phase result with e = 4096 (the fold after a global phase over
      four ranks' windows), the t-test on 2^20 cluster rows of 10 + 10
      samples, the read scorer on one part of 2^16 reads of 150 bp against
-     2^22 keys (k = 31); then the mode-C kernels again at 2^24 x 20;
+     2^22 keys (k = 31); then the mode-C kernels again at 2^21 x 20 (the
+     capacity of phase 5's late iterations) and at 2^24 x 20; at each size
+     chain_collapse is also timed without the parent fold (as the sharded
+     phases call it) beside a copy of the bytes it streams;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
   5. full size: a 2^24 x 20 count matrix with the distribution of
      bench.py make_data, mode C through the CLI (-I 20 -N 0.8) cold and warm,
      with the mode-C kernels' launch counts, the result checked against the
-     matrix recomputed on the host;
+     matrix recomputed on the host; then one more warm run under
+     torch.profiler: the card's time by kernel (the permute's and the chain
+     collapse's kernels, the key sort, the rest) and its idle share;
   6. mode E at full size: a 2^24 x 20 matrix whose rows are the 31-mers of
      random source sequences (one abundance profile per source, a few per
      cent shifted between the groups), 20 FASTQs of 2^16 reads x 150 bp,
@@ -81,6 +87,7 @@ DEV = torch.device("cuda", 0)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 S = 20
 SMALL = 1 << 20
+LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
 FULL = 1 << 24
 RANKS = 4                # phase 7's processes, all on the one card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
@@ -190,8 +197,11 @@ def write_matrix(work: str, counts: np.ndarray) -> list[float]:
     return [c / n for c in covs]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() on the card, after one warm-up call."""
+def cuda_ms(fn, reps: int = 5, calls: int = 10) -> float:
+    """Milliseconds of one fn() on the card, after one warm-up call: the
+    median over ``reps`` runs of ``calls`` back-to-back calls, each run
+    between two CUDA events, over ``calls`` (the host's work of one call
+    then overlaps the card's work of the one before)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -199,10 +209,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -391,6 +402,13 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
                       parent0.clone()),
                   8 * S * M + 28 * M + 4 * merged, 6 * S * M))
     log(f"chain_collapse: {merged} of {n_alive} columns merged at 0.95")
+    # as the sharded phases call it, without the parent fold; and a copy of
+    # the bytes it streams (values and three int columns in and out)
+    bare = cuda_ms(lambda: kernels.chain_collapse(svals, ssizes, sslots, skey,
+                                                  0.95, h))
+    copy = cuda_ms(lambda: [t.clone() for t in (svals, ssizes, sslots, skey)])
+    log(f"chain_collapse at {M}: without the parent fold {bare:.4f} ms; a "
+        f"copy of its values and int columns {copy:.4f} ms")
     if exchange:
         res.update(phase_kernels_exchange(k, merged))
 
@@ -598,6 +616,7 @@ def phase_full(tmp: str) -> dict:
     warm = time.perf_counter() - t0
     warm_device = engine.LAST_SESSION["device_seconds"]
     peak = torch.cuda.max_memory_allocated(DEV)
+    trace_mode_c(argv)
 
     saved, worst = check_clustering("full", clust, counts, v_kmers)
     n_clusters = engine.LAST_SESSION["clusters"]
@@ -610,6 +629,51 @@ def phase_full(tmp: str) -> dict:
     return dict(launches=launches, clusters=n_clusters, saved=saved,
                 cold=cold, warm=warm, counts=counts, v_kmers=v_kmers,
                 argv=argv)
+
+
+def kernel_group(name: str) -> str:
+    """The row of phase 5's device-time split a device event belongs to."""
+    if name.startswith("kl_permute"):
+        return "permute_state (kl_permute*)"
+    if name.startswith("kl_chain"):
+        return "chain_collapse (kl_chain*)"
+    if "sort" in name.lower():
+        return "key sort (torch.sort)"
+    if name.startswith("kl_"):
+        return name
+    if "memcpy" in name.lower() or "memset" in name.lower():
+        return "copies and fills"
+    return "other PyTorch kernels"
+
+
+def trace_mode_c(argv: list[str]) -> None:
+    """One more warm mode-C run under torch.profiler: the card's time by
+    kernel group, its busy time and idle share of the run's wall."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        cli_main(argv)
+        wall = time.perf_counter() - t0
+    by = {}
+    for e in trace.events():
+        if e.device_type == DeviceType.CUDA:
+            g = kernel_group(e.name)
+            ms, n = by.get(g, (0.0, 0))
+            by[g] = (ms + (e.time_range.end - e.time_range.start) * 1e-3, n + 1)
+    busy = device_busy_seconds(trace)
+    if busy <= 0:
+        raise AssertionError("full: the profiler saw no device time")
+    for name in ("permute_state (kl_permute*)", "chain_collapse (kl_chain*)"):
+        if name not in by:
+            raise AssertionError(f"full: no {name} kernel in the trace")
+    log(f"full traced run (warm, under torch.profiler): wall {wall:.4f} s, "
+        f"device session {engine.LAST_SESSION['device_seconds']:.4f} s, "
+        f"card busy {busy:.4f} s = idle {1 - busy / wall:.2%}")
+    for g, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0]):
+        log(f"full traced run: {g}: {ms:.3f} ms in {n} device events")
 
 
 def host_verdicts(values: np.ndarray, sizes: np.ndarray, pval: float,
@@ -921,6 +985,7 @@ def main() -> None:
 
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
+    phase_kernels(LATE, exchange=False)        # logged only
     phase_kernels(FULL, exchange=False)        # logged only
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)

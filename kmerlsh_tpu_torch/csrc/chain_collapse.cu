@@ -1,206 +1,357 @@
-// K3 (with the K4 parent fold): single-pass chain collapse over the sorted
-// state.
+// K3 (with the K4 parent fold): chain collapse over the sorted state.
 //
-// Replaces kmerlsh_tpu/cluster/engine.py chain_collapse (with _seg_scan,
+// Replaces kmerlsh_tpu/cluster/engine.py:335 chain_collapse (with _seg_scan,
 // _rev_fill and segment.segment_starts) and the per-program parent fold of
-// _iterate_update (engine.py:553). In sorted order: a position links to the
-// previous one when both are alive, share a bucket (key >> free_bits), the
-// position is not a multiple of 2^15 (the reference's stride cut) and their
-// cosine reaches the threshold. Each chain collapses onto its LAST position:
-// size = the chain's total, value = the size-weighted mean, slot = the
-// head's slot; the last position's own slot moves to the head position. Every
-// other member dies: merged_into = head slot, and parent[slot] = head slot.
-// Each slot dies once, so writing parent here equals the reference's fold.
+// _iterate_update (engine.py:478, the fold at :553). In sorted order: a
+// position links to the previous one when both are alive, share a bucket
+// (key >> free_bits), the position is not a multiple of 2^15 (the
+// reference's stride cut) and their cosine reaches the threshold. Each chain
+// collapses onto its LAST position: size = the chain's total, value = the
+// size-weighted mean, slot = the head's slot; the last position's own slot
+// moves to the head position. Every other member dies: merged_into = head
+// slot, and parent[slot] = head slot. Each slot dies once, so writing parent
+// here equals the reference's fold.
 //
-// Bound on the H100: device-memory bandwidth (the [S, M] values are read
-// about three times and written once). The stride cut means no chain crosses
-// an aligned 32768-position tile, so one block owns one tile and needs no
-// carry from any other block, no look-back. Inside a block:
-//   1. link flags for the tile into shared memory (thread i, i + T, ...:
-//      coalesced column reads); the cosine is summed s = 0, 1, ... with
-//      separately rounded operations, as the plain version does, so the
-//      links agree bit for bit;
-//   2. each thread scans its contiguous chunk of the tile from an empty
-//      state and leaves its end state (last head, size sum, value sums);
-//   3. S + 1 threads turn those into exclusive carries, one lane each;
-//   4. each thread rescans its chunk from its carry and writes the outputs.
-// The sums therefore run in chunk order, not in the reference's log-step
-// order: centroids agree with the plain version to rounding, not bit for bit.
+// Bound on the H100: device-memory bandwidth (the [S, M] values read once
+// and written once, and a few int32 arrays). The design:
+//   * One block per sub-range of P positions, P a power of two that divides
+//     2^15 and follows S (kernels.chain_plan: the S x P value tile stays in
+//     48 KB, so several blocks share an SM), so the card fills at every
+//     capacity: 4096 blocks at 2^21 x 20.
+//   * The block stages its S x P values, plus one halo column on each side,
+//     in shared memory with cp.async (coalesced: neighbouring threads take
+//     neighbouring positions) and writes each output value once from there.
+//   * Links: thread i sums the cosine of positions i - 1 and i over s = 0,
+//     1, ... with separately rounded operations, as the plain version does,
+//     so the links agree bit for bit.
+//   * Sums: a block-wide segmented scan per value row and for the sizes.
+//     Inside a warp the sizes go by shuffles and the value rows one lane per
+//     row over the warp's 32 positions (the head and last masks are the
+//     warp's ballots, the same for every row; a fused multiply-add a value
+//     instead of five shuffle steps); across the warps one warp scans their
+//     totals. The centroids are summed in another order than the
+//     reference's log-step scan and scaled by the reciprocal of the size:
+//     they agree to rounding, not bit for bit.
+//   * Carries across blocks: a decoupled look-back, chosen over a cluster of
+//     8 CTAs per 2^15 tile because a CTA of a cluster holds 4096 positions,
+//     more than its shared memory takes for S above ~13, so it would read
+//     the values twice. Each block publishes its aggregate (last head
+//     position and slot, size sum, S value sums since that head) to a
+//     status array, then, only if its first position links to the one
+//     before (a chain enters from the left), walks back over its
+//     predecessors' aggregates until one holds a head. No chain crosses a
+//     2^15 boundary, so the walk never passes the tile's first sub-range;
+//     a chain may run through whole sub-ranges with no head inside them, and
+//     the walk goes on through those. Blocks take their sub-range from an
+//     atomic counter, so every sub-range a block waits on belongs to a
+//     block that is already running and publishes without waiting.
+//     A block writes every position whose chain head lies inside it before
+//     it looks back; only the open prefix (the positions before its first
+//     head) waits for the carry. One warp writes the aggregate and fences
+//     once before it sets the flag.
+//   * The last member of a chain writes the slot at the head position and
+//     the parent entry, wherever the head lies. These scattered 4-byte
+//     writes are what the kernel spends most beyond a copy of its bytes.
 
 #include "common.cuh"
 
-#define KL_TILE 32768
+#define KL_CHAIN_STRIDE 32768   // chains are cut at multiples of 2^15
+#define KL_CHAIN_MAX_P 512
+#define KL_FULL 0xffffffffu
 
 __device__ __forceinline__ bool kl_alive(int size, int key) {
   return size > 0 && key != KL_BIG_KEY;
 }
 
-__global__ void kl_chain_kernel(const float* __restrict__ sv, int S, long long M,
-                                const int* __restrict__ ssize,
-                                const int* __restrict__ sslot,
-                                const int* __restrict__ skey,
-                                const int* __restrict__ smi, float thr,
-                                int free_bits, float* __restrict__ out_v,
-                                int* __restrict__ out_size,
-                                int* __restrict__ out_slot,
-                                int* __restrict__ out_mi,
-                                int* __restrict__ parent) {
-  extern __shared__ unsigned char smem[];
-  const int T = blockDim.x;
-  const int t = threadIdx.x;
-  unsigned char* flags = smem;                       // bit 1 alive, bit 0 link
-  int* agg_head = (int*)(smem + KL_TILE);            // [T] last head in chunk
-  int* agg_w = agg_head + T;                         // [T] size sum -> carry
-  int* carry_head = agg_w + T;                       // [T]
-  float* agg_v = (float*)(carry_head + T);           // [S][T] -> carry
-  const long long base = (long long)blockIdx.x * KL_TILE;
-  const int len = (int)min((long long)KL_TILE, M - base);
+// Lanes back that a segmented inclusive scan may add from: the distance to
+// the latest head at or before this lane (heads: a bit per lane), or the
+// lane itself when there is none. Step d adds the value d lanes back iff
+// d <= this.
+__device__ __forceinline__ int kl_seg_reach(unsigned heads, int lane) {
+  const unsigned upto = heads & (KL_FULL >> (31 - lane));
+  return upto ? lane - (31 - __clz(upto)) : lane;
+}
 
-  // 1. alive and link flags
-  for (int i = t; i < len; i += T) {
-    long long p = base + i;
-    int k = skey[p];
-    bool alive = kl_alive(ssize[p], k);
-    bool link = false;
-    if (alive && i > 0) {   // i == 0 is a multiple of 2^15: never linked
-      int kq = skey[p - 1];
-      if (kl_alive(ssize[p - 1], kq) && (k >> free_bits) == (kq >> free_bits)) {
-        float dot = 0.f, na = 0.f, nb = 0.f;
-        for (int s = 0; s < S; ++s) {
-          float a = sv[(long long)s * M + p];
-          float b = sv[(long long)s * M + p - 1];
-          dot = __fadd_rn(dot, __fmul_rn(a, b));
-          na = __fadd_rn(na, __fmul_rn(a, a));
-          nb = __fadd_rn(nb, __fmul_rn(b, b));
-        }
-        float nn = __fsqrt_rn(__fmul_rn(na, nb));
-        float sim = __fdiv_rn(dot, nn > 0.f ? nn : 1.f);
-        link = sim >= thr;
-      }
-    }
-    flags[i] = (unsigned char)((alive ? 2 : 0) | (link ? 1 : 0));
+// Shared memory of one block, in 4-byte words (kernels.chain_plan computes
+// the same): the value tile [S][P + 3] (an odd row length: lanes reading
+// one column of 32 rows hit 32 banks), sizes and keys [P + 2], slots [P],
+// links [P + 1], the alive sizes as floats [P], the warps' value totals
+// [S][P / 32], their size totals and latest heads [P / 32] each, the
+// carry's value sums [S] and 4 ints.
+static inline long long kl_chain_words(long long S, long long P) {
+  return S * (P + 3) + 2 * (P + 2) + P + (P + 1) + P + S * (P / 32) +
+         2 * (P / 32) + S + 4;
+}
+
+__global__ void __launch_bounds__(KL_CHAIN_MAX_P, 4) kl_chain_kernel(
+    const float* __restrict__ sv, int S, long long M, int P,
+    const int* __restrict__ ssize, const int* __restrict__ sslot,
+    const int* __restrict__ skey, const int* __restrict__ smi, float thr,
+    int free_bits, float* __restrict__ out_v, int* __restrict__ out_size,
+    int* __restrict__ out_slot, int* __restrict__ out_mi,
+    int* __restrict__ parent, int* __restrict__ status, int* agg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5, nw = P >> 5;
+  const int L = P + 3;
+  float* tile = (float*)smem;                        // [S][L]: column j is
+  int* csz = (int*)(tile + (long long)S * L) + 1;    // position base - 1 + j
+  int* ckey = csz + P + 2;                           // [-1, P]
+  int* cslot = ckey + P + 1;                         // [P]
+  int* clink = cslot + P;                            // [P + 1]
+  float* cw = (float*)(clink + P + 1);               // [P]
+  float* wv = cw + P;                                // [S][nw]
+  int* ww = (int*)(wv + (long long)S * nw);          // [nw]
+  int* whp = ww + nw;                                // [nw]
+  float* carry_v = (float*)(whp + nw);               // [S]
+  int* misc = (int*)(carry_v + S);                   // id, carry hp/slot/w
+
+  const long long nsub = gridDim.x;
+  if (i == 0) misc[0] = atomicAdd(status + nsub, 1);
+  __syncthreads();
+  const long long id = misc[0];
+  const long long base = id * P;
+  const int n = (int)min((long long)P, M - base);
+  const bool has_left = base > 0, has_right = base + P < M;
+
+  // 1. stage the values (cp.async) and the int columns of [-1, P]
+  for (int s = 0; s < S; ++s) {
+    const float* row = sv + (long long)s * M + base;
+    float* trow = tile + (long long)s * L + 1;
+    if (i < n) kl_cp_async4(trow + i, row + i);
+    else trow[i] = 0.f;   // past M: the scan multiplies it by a size of 0
+    if (i == 0 && has_left) kl_cp_async4(trow - 1, row - 1);
+    if (i == P - 1 && has_right) kl_cp_async4(trow + P, row + P);
   }
+  if (i < n) {
+    csz[i] = ssize[base + i];
+    ckey[i] = skey[base + i];
+    cslot[i] = sslot[base + i];
+  } else {
+    csz[i] = 0;
+    ckey[i] = KL_BIG_KEY;
+    cslot[i] = 0;
+  }
+  if (i == 0) {
+    csz[-1] = has_left ? ssize[base - 1] : 0;
+    ckey[-1] = has_left ? skey[base - 1] : KL_BIG_KEY;
+  }
+  if (i == P - 1) {
+    csz[P] = has_right ? ssize[base + P] : 0;
+    ckey[P] = has_right ? skey[base + P] : KL_BIG_KEY;
+  }
+  kl_cp_async_wait_all();
   __syncthreads();
 
-  // 2. end state of each chunk, scanned from an empty state
-  const int chunk = (len + T - 1) / T;
-  const int lo = min(t * chunk, len);
-  const int hi = min(lo + chunk, len);
-  {
-    int last_head = -1, w = 0;
-    for (int i = lo; i < hi; ++i) {
-      int f = flags[i];
-      if (f == 2) { last_head = i; w = ssize[base + i]; }
-      else if (f & 1) w += ssize[base + i];
-    }
-    agg_head[t] = last_head;
-    agg_w[t] = w;
+  // 2. links of positions 0 .. P (P: the next sub-range's first position)
+  auto link_at = [&](int j) -> int {
+    const long long p = base + j;
+    if (p >= M || (p & (KL_CHAIN_STRIDE - 1)) == 0) return 0;
+    const int k = ckey[j], kq = ckey[j - 1];
+    if (!kl_alive(csz[j], k) || !kl_alive(csz[j - 1], kq) ||
+        (k >> free_bits) != (kq >> free_bits))
+      return 0;
+    float dot = 0.f, na = 0.f, nb = 0.f;
     for (int s = 0; s < S; ++s) {
-      const float* row = sv + (long long)s * M + base;
-      float acc = 0.f;
-      for (int i = lo; i < hi; ++i) {
-        int f = flags[i];
-        float x = __fmul_rn(row[i], (float)ssize[base + i]);
-        if (f == 2) acc = x;
-        else if (f & 1) acc = __fadd_rn(acc, x);
-      }
-      agg_v[s * T + t] = acc;
+      const float a = tile[(long long)s * L + 1 + j];
+      const float b = tile[(long long)s * L + j];
+      dot = __fadd_rn(dot, __fmul_rn(a, b));
+      na = __fadd_rn(na, __fmul_rn(a, a));
+      nb = __fadd_rn(nb, __fmul_rn(b, b));
+    }
+    const float nn = __fsqrt_rn(__fmul_rn(na, nb));
+    const float sim = __fdiv_rn(dot, nn > 0.f ? nn : 1.f);
+    return sim >= thr;
+  };
+  clink[i] = link_at(i);
+  if (i == 0) clink[P] = link_at(P);
+  __syncthreads();
+
+  const int sz = csz[i];
+  const bool alive = i < n && kl_alive(sz, ckey[i]);
+  const bool link = clink[i];
+  const bool head = alive && !link;
+  const bool last = alive && !clink[i + 1];
+  const unsigned heads = __ballot_sync(KL_FULL, head);
+  const unsigned lasts = __ballot_sync(KL_FULL, last);
+  const int reach = kl_seg_reach(heads, lane);
+  const unsigned upto = heads & (KL_FULL >> (31 - lane));
+  const int hl = upto ? 31 - __clz(upto) : -1;   // latest head lane <= lane
+
+  // 3. segmented scans inside each warp: the sizes by shuffles; the value
+  //    rows one lane per row, serially over the warp's 32 positions with the
+  //    warp's head and last masks (the warp-local sum of a last position
+  //    replaces its value in the tile)
+  int w = alive ? sz : 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(KL_FULL, w, d);
+    if (d <= reach) w += u;
+  }
+  if (lane == 31) {
+    ww[warp] = w;
+    whp[warp] = hl >= 0 ? warp * 32 + hl : -1;
+  }
+  cw[i] = alive ? (float)sz : 0.f;
+  __syncwarp();
+  for (int s = lane; s < S; s += 32) {
+    float* x = tile + (long long)s * L + 1 + warp * 32;
+    const float* f = cw + warp * 32;
+    float c = 0.f;   // a dead position adds x * 0
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      c = __fmaf_rn(x[j], f[j], (heads >> j) & 1 ? 0.f : c);
+      if ((lasts >> j) & 1) x[j] = c;
+    }
+    wv[(long long)s * nw + warp] = c;
+  }
+  __syncthreads();
+
+  // 4. across the warps: exclusive prefixes in place, and this block's
+  //    aggregate (from an empty state): its value sums into carry_v, its
+  //    last head, that head's slot and its size sum into misc[1..3]
+  const unsigned wheads = __ballot_sync(KL_FULL, lane < nw && whp[lane] >= 0);
+  const int wreach = kl_seg_reach(wheads, lane);
+  for (int s = warp; s < S; s += nw) {
+    float a = lane < nw ? wv[(long long)s * nw + lane] : 0.f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float u = __shfl_up_sync(KL_FULL, a, d);
+      if (d <= wreach) a = __fadd_rn(u, a);
+    }
+    const float ex = __shfl_up_sync(KL_FULL, a, 1);
+    const float tot = __shfl_sync(KL_FULL, a, nw - 1);
+    if (lane < nw) wv[(long long)s * nw + lane] = lane ? ex : 0.f;
+    if (lane == 0) carry_v[s] = tot;
+  }
+  if (warp == 0) {
+    int a = lane < nw ? ww[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(KL_FULL, a, d);
+      if (d <= wreach) a += u;
+    }
+    const int ex = __shfl_up_sync(KL_FULL, a, 1);
+    const int tot = __shfl_sync(KL_FULL, a, nw - 1);
+    if (lane < nw) ww[lane] = lane ? ex : 0;
+    if (lane == 0) {
+      const int hp = wheads ? whp[31 - __clz(wheads)] : -1;
+      misc[1] = hp >= 0 ? (int)(base + hp) : -1;
+      misc[2] = hp >= 0 ? cslot[hp] : 0;
+      misc[3] = tot;
     }
   }
   __syncthreads();
 
-  // 3. exclusive carries: lane s < S scans value row s, lane S the ints
-  for (int lane = t; lane <= S; lane += T) {
-    if (lane < S) {
-      float c = 0.f;
-      for (int j = 0; j < T; ++j) {
-        float a = agg_v[lane * T + j];
-        agg_v[lane * T + j] = c;
-        c = agg_head[j] >= 0 ? a : __fadd_rn(c, a);
-      }
-    } else {
-      int cw = 0, ch = -1;
-      for (int j = 0; j < T; ++j) {
-        int a = agg_w[j], hh = agg_head[j];
-        agg_w[j] = cw;
-        carry_head[j] = ch;
-        if (hh >= 0) { cw = a; ch = hh; }
-        else cw += a;
-      }
-    }
+  // 5. warp 0 publishes the aggregate: payload, one fence, then the flag
+  if (warp == 0) {
+    int* my_agg = agg + id * (3 + S);
+    for (int s = lane; s < S; s += 32) ((float*)my_agg)[3 + s] = carry_v[s];
+    if (lane < 3) my_agg[lane] = misc[1 + lane];
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) atomicExch(status + id, 1);
   }
-  __syncthreads();
 
-  // 4. rescan from the carry and write the outputs
-  {
-    int head = carry_head[t], w = agg_w[t];
-    for (int i = lo; i < hi; ++i) {
-      long long p = base + i;
-      int f = flags[i];
-      bool alive = f & 2, link = f & 1;
-      bool next_link = (i + 1 < len) && (flags[i + 1] & 1);
-      bool last = alive && !next_link;
-      int sz = ssize[p];
-      if (alive && !link) { head = i; w = sz; }
-      else if (link) w += sz;
-      int head_slot = alive ? sslot[base + head] : 0;
-      out_size[p] = last ? w : (alive ? 0 : sz);
-      if (out_mi)
-        out_mi[p] = (alive && !last) ? head_slot : (smi ? smi[p] : -1);
+  // 6. this position's chain: its head and inclusive size sum inside the
+  //    block; "open" when no head precedes it in the block (its chain
+  //    enters from the left: the carry completes it)
+  int hloc = hl >= 0 ? warp * 32 + hl : -1;
+  if (hloc < 0) {
+    const unsigned before = wheads & ((1u << warp) - 1);
+    if (before) hloc = whp[31 - __clz(before)];
+  }
+  const bool open = hloc < 0;
+  const int w_in = hl >= 0 ? w : ww[warp] + w;
+  const long long p = base + i;
+  // every value written once, coalesced along the rows, then the ints
+  auto emit = [&](int W, long long habs, int hslot) {
+    const float rw = __frcp_rn((float)max(W, 1));
+    for (int s = 0; s < S; ++s) {
+      float x = tile[(long long)s * L + 1 + i];
       if (last) {
-        out_slot[p] = head_slot;
-        if (head != i) {   // the last member's slot moves to the head and dies
-          out_slot[base + head] = sslot[p];
-          if (parent) parent[sslot[p]] = head_slot;
-        }
-      } else if (link) {
-        out_slot[p] = sslot[p];
-        if (parent) parent[sslot[p]] = head_slot;
-      } else if (!alive) {
-        out_slot[p] = sslot[p];
-      }   // a head that is not last: written by its chain's last member
+        if (hl < 0) x = __fadd_rn(wv[(long long)s * nw + warp], x);
+        if (open) x = __fadd_rn(carry_v[s], x);
+        x = __fmul_rn(x, rw);
+      }
+      out_v[(long long)s * M + p] = x;
     }
-    for (int s = 0; s < S; ++s) {
-      const float* row = sv + (long long)s * M + base;
-      float* orow = out_v + (long long)s * M + base;
-      float acc = agg_v[s * T + t];
-      int ww = agg_w[t];
-      for (int i = lo; i < hi; ++i) {
-        int f = flags[i];
-        bool alive = f & 2, link = f & 1;
-        bool next_link = (i + 1 < len) && (flags[i + 1] & 1);
-        int sz = ssize[base + i];
-        float x = row[i];
-        float wx = __fmul_rn(x, (float)sz);
-        if (alive && !link) { acc = wx; ww = sz; }
-        else if (link) { acc = __fadd_rn(acc, wx); ww += sz; }
-        orow[i] = (alive && !next_link)
-                      ? __fdiv_rn(acc, (float)max(ww, 1)) : x;
+    const int slot = cslot[i];
+    out_size[p] = last ? W : (alive ? 0 : sz);
+    if (out_mi) out_mi[p] = (alive && !last) ? hslot : (smi ? smi[p] : -1);
+    if (last) {
+      out_slot[p] = hslot;
+      if (habs != p) {   // the last member's slot moves to the head and dies
+        out_slot[habs] = slot;
+        if (parent) parent[slot] = hslot;
+      }
+    } else if (link) {
+      out_slot[p] = slot;
+      if (parent) parent[slot] = hslot;
+    } else if (!alive) {
+      out_slot[p] = slot;
+    }   // a head that is not last: written by its chain's last member
+  };
+  // 7. warp 0 looks back, for a chain entering from the left (then base is
+  //    no multiple of 2^15 and position 0 of the block is open), while the
+  //    other warps write the positions whose head lies in the block; then
+  //    it writes its own
+  if (warp == 0) {
+    int c_hp = -1, c_slot = 0, c_w = 0;
+    for (int s = lane; s < S; s += 32) carry_v[s] = 0.f;
+    if (clink[0]) {
+      const long long first = (base & ~(long long)(KL_CHAIN_STRIDE - 1)) / P;
+      for (long long j = id - 1;; --j) {
+        // every predecessor publishes unconditionally: one that never does
+        // is a fault, reported as a launch error instead of a hung card
+        for (unsigned spins = 0; lane == 0 && ((volatile int*)status)[j] == 0;
+             ++spins) {
+          if (spins > (1u << 24)) __trap();
+          __nanosleep(32);
+        }
+        __syncwarp();
+        __threadfence();
+        const volatile int* a = agg + j * (3 + S);
+        const int jhp = a[0], jslot = a[1];
+        c_w += a[2];
+        const volatile float* av = (const volatile float*)(a + 3);
+        for (int s = lane; s < S; s += 32)
+          carry_v[s] = __fadd_rn(av[s], carry_v[s]);
+        if (jhp >= 0) {
+          c_hp = jhp;
+          c_slot = jslot;
+          break;
+        }
+        if (j == first) break;
       }
     }
+    if (lane == 0) {
+      misc[1] = c_hp;
+      misc[2] = c_slot;
+      misc[3] = c_w;
+    }
   }
+  if (!open && i < n) emit(w_in, base + hloc, cslot[hloc]);
+  __syncthreads();
+  if (open && i < n) emit(w_in + misc[3], misc[1], misc[2]);
 }
 
 KL_EXPORT int kl_chain_collapse(const void* sv, int S, long long M,
                                 const void* ssize, const void* sslot,
                                 const void* skey, const void* smi, float thr,
-                                int free_bits, void* out_v, void* out_size,
+                                int free_bits, int P, int smem, void* status,
+                                void* agg, void* out_v, void* out_size,
                                 void* out_slot, void* out_mi, void* parent,
                                 void* stream) {
-  int threads = 256;
-  size_t smem = 0;
-  for (; threads >= 32; threads >>= 1) {
-    smem = KL_TILE + (size_t)threads * (3 * sizeof(int) + S * sizeof(float));
-    if (smem <= 227 * 1024) break;
-  }
-  if (threads < 32) return (int)cudaErrorInvalidValue;
+  if (P < 32 || P > KL_CHAIN_MAX_P || (P & (P - 1)) != 0 ||
+      (long long)smem != 4 * kl_chain_words(S, P) || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      kl_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kl_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  unsigned blocks = (unsigned)((M + KL_TILE - 1) / KL_TILE);
-  kl_chain_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)sv, S, M, (const int*)ssize, (const int*)sslot,
+  kl_chain_kernel<<<kl_blocks(M, P), P, smem, (cudaStream_t)stream>>>(
+      (const float*)sv, S, M, P, (const int*)ssize, (const int*)sslot,
       (const int*)skey, (const int*)smi, thr, free_bits, (float*)out_v,
-      (int*)out_size, (int*)out_slot, (int*)out_mi, (int*)parent);
+      (int*)out_size, (int*)out_slot, (int*)out_mi, (int*)parent,
+      (int*)status, (int*)agg);
   return (int)cudaGetLastError();
 }

@@ -1,51 +1,144 @@
 // K2: apply a sort order to the iteration state.
 //
 // Replaces the payload half of the reference's variadic sort
-// (kmerlsh_tpu/cluster/engine.py _sort_state and compact_sort, where XLA
-// carried the S value rows, sizes and slots through lax.sort as payloads).
-// Here the int32 key sort is torch.sort(stable=True) and this kernel moves
-// the state by the resulting order: out[:, i] = in[:, order[i]].
+// (kmerlsh_tpu/cluster/engine.py:117 _sort_state and :451 compact_sort,
+// where XLA carried the S value rows, sizes and slots through lax.sort as
+// payloads). Here the int32 key sort is torch.sort(stable=True) and these
+// kernels move the state by the resulting order: out[:, i] = in[:, order[i]],
+// sizes and slots alike, bit for bit.
 //
-// Bound on the H100: device-memory latency and bandwidth of scattered reads.
-// Writes are coalesced (neighbouring threads write neighbouring columns);
-// each read of in[s, order[i]] touches its own 32-byte sector, so the reads
-// move up to 8x the useful bytes. The design keeps it to one pass with many
-// loads in flight: one thread per (row, column) element, the row taken from
-// blockIdx.y, and the threads of row 0 also move the two int32 arrays. The
-// input may be a column slice of a wider matrix (row stride ld_in), so the
-// engine never copies to shrink capacity.
+// Bound on the H100: device-memory bandwidth. The state is sample-major
+// [S, M], so a gather straight from it reads a whole 32-byte sector for
+// every 4-byte value (about 8x the useful bytes) and, with one thread per
+// (row, column), reads order[i] once per row. The design moves the state
+// twice instead, each time in whole sectors:
+//   (a) kl_permute_transpose: a tile of C columns goes through shared
+//       memory into a profile-major scratch [M, W]: each scratch row holds
+//       the column's S values, then its size and slot as 32-bit words,
+//       padded to W = a multiple of 8 words (whole 32-byte sectors). The
+//       tile comes in by cp.async along the rows of the input (which may be
+//       a column slice of a wider matrix, row stride ld_in), so every load
+//       of the block is in flight at once, and goes out along the scratch;
+//   (b) kl_permute_gather: a block takes a run of C output columns, reads
+//       each order[i] once, copies the W words of each source row into
+//       shared memory with 16-byte cp.async, and writes the S value rows,
+//       the sizes and the slots coalesced.
+// At 2^24 x 20 that is ~6.3 GB of traffic against ~15 GB for the direct
+// gather. Bank conflicts: the transpose tile's rows are W + 1 words (odd),
+// so its column-wise writes hit distinct banks; the gather tile's rows are
+// W + 4 words (16-byte aligned, W + 4 = 4 mod 8), so the 16-byte reads of
+// eight neighbouring columns cover distinct banks. The scratch is allocated
+// by the wrapper; the launch arithmetic (W, C, shared memory) is
+// kmerlsh_tpu_torch.kernels.permute_plan, checked here.
 
 #include "common.cuh"
 
-__global__ void kl_permute_kernel(const float* __restrict__ vin, long long ld_in,
-                                  long long M,
-                                  const long long* __restrict__ order,
-                                  const int* __restrict__ sizes_in,
-                                  const int* __restrict__ slots_in,
-                                  float* __restrict__ vout,
-                                  int* __restrict__ sizes_out,
-                                  int* __restrict__ slots_out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  long long s = blockIdx.y;
-  long long src = order[i];
-  vout[s * M + i] = vin[s * ld_in + src];
-  if (s == 0) {
-    sizes_out[i] = sizes_in[src];
-    slots_out[i] = slots_in[src];
+#define KL_MOVE_THREADS 256
+
+__global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_transpose(
+    const unsigned* __restrict__ vin, long long ld_in, int S, long long M,
+    const unsigned* __restrict__ sizes, const unsigned* __restrict__ slots,
+    int W, int C, unsigned* __restrict__ scr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* tile = (unsigned*)smem;   // [C][W + 1]
+  const int t = threadIdx.x, ldt = W + 1;
+  const long long c0 = (long long)blockIdx.x * C;
+  const int n = (int)min((long long)C, M - c0);
+  const int c = t % C;   // C divides the block: a warp shares one row s
+  if (c < n) {
+    for (int s = t / C; s < W; s += KL_MOVE_THREADS / C) {
+      unsigned* d = tile + c * ldt + s;
+      if (s < S) kl_cp_async4(d, vin + s * ld_in + c0 + c);
+      else if (s == S) kl_cp_async4(d, sizes + c0 + c);
+      else if (s == S + 1) kl_cp_async4(d, slots + c0 + c);
+      else *d = 0;
+    }
+  }
+  kl_cp_async_wait_all();
+  __syncthreads();
+  // the tile's n rows are contiguous in the scratch: word j is (j / W, j % W)
+  unsigned* dst = scr + c0 * W;
+  const int dc = KL_MOVE_THREADS / W, ds = KL_MOVE_THREADS % W;
+  int cc = t / W, s = t % W;
+  for (int j = t; j < n * W; j += KL_MOVE_THREADS) {
+    dst[j] = tile[cc * ldt + s];
+    cc += dc;
+    s += ds;
+    if (s >= W) {
+      s -= W;
+      ++cc;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
+    const unsigned* __restrict__ scr, int S, long long M,
+    const long long* __restrict__ order, int W, int C,
+    unsigned* __restrict__ vout, unsigned* __restrict__ sizes_out,
+    unsigned* __restrict__ slots_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* ord = (long long*)smem;            // [C]
+  unsigned* tile = (unsigned*)(smem + 8 * C);   // [C][W + 4]
+  const int t = threadIdx.x, ldt = W + 4, Q = W / 4;
+  const long long i0 = (long long)blockIdx.x * C;
+  const int n = (int)min((long long)C, M - i0);
+  for (int c = t; c < n; c += KL_MOVE_THREADS) ord[c] = order[i0 + c];
+  __syncthreads();
+  {  // quad e of the run is (column e / Q, quad e % Q)
+    const int dc = KL_MOVE_THREADS / Q, dq = KL_MOVE_THREADS % Q;
+    int c = t / Q, q = t % Q;
+    for (int e = t; e < n * Q; e += KL_MOVE_THREADS) {
+      kl_cp_async16(tile + c * ldt + 4 * q, scr + ord[c] * W + 4 * q);
+      c += dc;
+      q += dq;
+      if (q >= Q) {
+        q -= Q;
+        ++c;
+      }
+    }
+  }
+  kl_cp_async_wait_all();
+  __syncthreads();
+  const int c = t % C;
+  if (c >= n) return;
+  for (int q = t / C; 4 * q < S + 2; q += KL_MOVE_THREADS / C) {
+    const uint4 x = *(const uint4*)(tile + c * ldt + 4 * q);
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int s = 4 * q + k;
+      if (s < S) vout[s * M + i0 + c] = w[k];
+      else if (s == S) sizes_out[i0 + c] = w[k];
+      else if (s == S + 1) slots_out[i0 + c] = w[k];
+    }
   }
 }
 
 KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
                                long long M, const void* order,
                                const void* sizes_in, const void* slots_in,
+                               int W, int C, int smem, void* scratch,
                                void* vout, void* sizes_out, void* slots_out,
                                void* stream) {
-  const int threads = 256;
-  dim3 grid(kl_blocks(M, threads), (unsigned)(S > 0 ? S : 1));
-  kl_permute_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)vin, ld_in, M, (const long long*)order,
-      (const int*)sizes_in, (const int*)slots_in, (float*)vout,
-      (int*)sizes_out, (int*)slots_out);
+  if (W < S + 2 || W % 8 != 0 || C < 32 || KL_MOVE_THREADS % C != 0 ||
+      smem != 8 * C + 4 * C * (W + 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kl_permute_transpose,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(kl_permute_gather,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess)
+    return (int)err;
+  const unsigned blocks = kl_blocks(M, C);
+  kl_permute_transpose<<<blocks, KL_MOVE_THREADS, 4 * C * (W + 1), st>>>(
+      (const unsigned*)vin, ld_in, S, M, (const unsigned*)sizes_in,
+      (const unsigned*)slots_in, W, C, (unsigned*)scratch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  kl_permute_gather<<<blocks, KL_MOVE_THREADS, smem, st>>>(
+      (const unsigned*)scratch, S, M, (const long long*)order, W, C,
+      (unsigned*)vout, (unsigned*)sizes_out, (unsigned*)slots_out);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,8 @@ from kmerlsh_tpu_torch.ops.lsh import BIG_KEY
 from kmerlsh_tpu_torch.ops.segment import segment_starts
 
 MAX_CHAIN_LOG = 15   # chains are cut at positions that are multiples of 2^15
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+STAGE_BYTES = 48 * 1024   # the tile a block of K2 or K3 stages, at most
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
@@ -150,6 +152,25 @@ def lsh_keys(values_t: torch.Tensor, sizes: torch.Tensor,
 
 # --- K2: permute ------------------------------------------------------------
 
+def permute_plan(S: int, M: int) -> dict:
+    """Launch arithmetic of ``permute_state`` at S rows and M columns: W,
+    the 32-bit words of a scratch row (the S values, the size and the slot,
+    padded to whole 32-byte sectors); ``cols``, the columns of a block's
+    transpose tile and gather run (128, 64 or 32: the most whose tile stays
+    within STAGE_BYTES, so that several blocks share an SM); the blocks of
+    each of the two launches and the shared memory of one (the gather's:
+    the order run, then rows of W + 4 words)."""
+    W = -(-(S + 2) // 8) * 8
+    cols = 128
+    while cols > 32 and 4 * cols * (W + 4) > STAGE_BYTES:
+        cols //= 2
+    smem = 8 * cols + 4 * cols * (W + 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"permute_state: S = {S} rows need {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return dict(W=W, cols=cols, blocks=-(-M // cols), threads=256, smem=smem)
+
+
 def permute_state_plain(values_t, sizes, slots, order):
     return values_t[:, order], sizes[order], slots[order]
 
@@ -169,8 +190,12 @@ def permute_state(values_t: torch.Tensor, sizes: torch.Tensor,
     osizes = torch.empty_like(sizes)
     oslots = torch.empty_like(slots)
     if M:
+        plan = permute_plan(S, M)
+        scratch = torch.empty((M, plan["W"]), dtype=torch.int32,
+                              device=values_t.device)
         _launch("kl_permute_state", values_t.data_ptr(), values_t.stride(0),
                 S, M, order.data_ptr(), sizes.data_ptr(), slots.data_ptr(),
+                plan["W"], plan["cols"], plan["smem"], scratch.data_ptr(),
                 out.data_ptr(), osizes.data_ptr(), oslots.data_ptr())
         launches["permute_state"] += 1
     return out, osizes, oslots
@@ -210,6 +235,28 @@ def _rev_fill(last, scs, m: int):
         f = f | _shift(f, d, True)
         d *= 2
     return fill.flip(0)
+
+
+def chain_plan(S: int, M: int) -> dict:
+    """Launch arithmetic of ``chain_collapse`` at S rows and M positions:
+    ``blocks`` blocks of P threads, one per sub-range of P positions, P the
+    largest power of two in [32, 512] whose S x P value tile stays within
+    STAGE_BYTES (P divides 2^15, so no sub-range crosses the stride cut;
+    the carries between sub-ranges go by look-back, so there is no
+    cluster). ``smem`` follows the kernel's
+    layout (csrc/chain_collapse.cu ``kl_chain_words``): the tile with a halo
+    column on each side and odd rows, sizes, keys, slots, links, sizes as
+    floats, the warps' totals, the carry's value sums and 4 ints."""
+    P = 512
+    while P > 32 and 4 * P * S > STAGE_BYTES:
+        P //= 2
+    nw = P // 32
+    words = (S * (P + 3) + 2 * (P + 2) + P + (P + 1) + P + S * nw + 2 * nw
+             + S + 4)
+    if 4 * words > SMEM_LIMIT:
+        raise ValueError(f"chain_collapse: S = {S} rows need {4 * words} "
+                         f"bytes of shared memory, more than {SMEM_LIMIT}")
+    return dict(P=P, blocks=-(-M // P), smem=4 * words)
 
 
 def chain_collapse_plain(svals, ssizes, sslots, skey, threshold: float,
@@ -275,11 +322,19 @@ def chain_collapse(svals: torch.Tensor, ssizes: torch.Tensor,
     out_slot = torch.empty_like(sslots)
     out_mi = torch.empty_like(sslots)
     if M:
+        plan = chain_plan(S, M)
+        nsub = plan["blocks"]
+        # per sub-range: a published flag (zeroed), then the block counter;
+        # its aggregate: head position, head slot, size sum, S value sums
+        status = torch.zeros(nsub + 1, dtype=torch.int32, device=svals.device)
+        agg = torch.empty(nsub * (3 + S), dtype=torch.int32,
+                          device=svals.device)
         _launch("kl_chain_collapse", svals.data_ptr(), S, M,
                 ssizes.data_ptr(), sslots.data_ptr(), skey.data_ptr(),
-                _ptr(smi), float(threshold), free_bits(h), out_v.data_ptr(),
-                out_size.data_ptr(), out_slot.data_ptr(), out_mi.data_ptr(),
-                _ptr(parent))
+                _ptr(smi), float(threshold), free_bits(h), plan["P"],
+                plan["smem"], status.data_ptr(), agg.data_ptr(),
+                out_v.data_ptr(), out_size.data_ptr(), out_slot.data_ptr(),
+                out_mi.data_ptr(), _ptr(parent))
         launches["chain_collapse"] += 1
     return out_v, out_size, out_slot, out_mi
 

@@ -58,35 +58,91 @@ def test_transform_and_keys_exact(dev, n):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
-def test_permute_exact(dev):
-    _, _, values, sizes = _state(1 << 16, dev)
-    slots = torch.randperm(1 << 16, device=dev).to(torch.int32)
-    order = torch.randperm(40000, device=dev)
-    k = kernels.permute_state(values[:, :40000], sizes[:40000],
-                              slots[:40000], order)
-    p = kernels.permute_state_plain(values[:, :40000], sizes[:40000],
-                                    slots[:40000], order)
+@pytest.mark.parametrize("s", [1, 3, 20, 100])
+def test_permute_exact(dev, s):
+    # a column slice of a wider matrix, M a multiple of no gather run
+    n, m = 1 << 16, 40003
+    r = np.random.default_rng(s)
+    wide = torch.from_numpy(r.normal(size=(s, n)).astype(np.float32)).to(dev)
+    sizes = torch.from_numpy(r.integers(0, 9, n, dtype=np.int32)).to(dev)
+    slots = torch.randperm(n, device=dev).to(torch.int32)
+    order = torch.randperm(m, device=dev)
+    assert m % kernels.permute_plan(s, m)["cols"]
+    k = kernels.permute_state(wide[:, :m], sizes[:m], slots[:m], order)
+    p = kernels.permute_state_plain(wide[:, :m], sizes[:m], slots[:m], order)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
-@pytest.mark.parametrize("n,thr", [(1 << 16, 0.95), (70000, 0.5)])
-def test_chain_collapse_matches_plain(dev, n, thr):
+def _random_case(dev, n):
     # 16 profiles in 8 buckets: chains thousands long, across tile borders
     _, _, values, sizes = _state(n, dev, n_prof=16)
-    h = 3
     key, _ = kernels.lsh_keys(values, sizes,
-                              rng.draw_hyperplanes(1, 1, S).to(dev), h)
+                              rng.draw_hyperplanes(1, 1, S).to(dev), 3)
     skey, order = torch.sort(key, stable=True)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
-    sv, ss, sl = kernels.permute_state(values, sizes, slots, order)
-    smi = torch.where(torch.rand(n, device=dev) < 0.1, 7, -1).to(torch.int32)
-    pk = torch.arange(n, dtype=torch.int32, device=dev)
-    pp = pk.clone()
+    return (*kernels.permute_state(values, sizes, slots, order), skey)
+
+
+def _runs_case(dev, s, n):
+    """A sorted state of n positions made of runs: a run shares a profile
+    (cosine near 1) and a bucket, neighbouring runs differ in bucket. The
+    runs cross the kernel's sub-ranges (P positions) at every offset; the
+    second covers three whole sub-ranges with no head inside; one spans the
+    2^15 cut. Elsewhere one column in 40 is dead; the last 500 are dead with
+    the largest key, as the sort leaves them."""
+    P, stride = kernels.chain_plan(s, n)["P"], 1 << kernels.MAX_CHAIN_LOG
+    r = np.random.default_rng(s)
+    cycle = [1, 2, 5, 33, P - 1, P + 1, 77, 2 * P]
+    lengths = [300, 3 * P + 100]
+    while sum(lengths) < stride - 1000:
+        lengths.append(cycle[len(lengths) % len(cycle)])
+    across = len(lengths)
+    lengths.append(stride + 1000 - sum(lengths))
+    live = n - 500
+    while sum(lengths) < live:
+        lengths.append(cycle[len(lengths) % len(cycle)])
+    run = np.repeat(np.arange(len(lengths)), lengths)[:live]
+    prof = r.normal(size=(len(lengths), s)).astype(np.float32)
+    vals = np.zeros((n, s), np.float32)
+    vals[:live] = prof[run] + 1e-3 * r.normal(size=(live, s))
+    sizes = np.zeros(n, np.int32)
+    sizes[:live] = r.integers(1, 9, live)
+    dead = (r.random(live) < 1 / 40) & (run != 1) & (run != across)
+    sizes[:live][dead] = 0
+    key = np.full(n, 0x7FFFFFFF, np.int32)
+    fb = kernels.free_bits(3)
+    key[:live] = ((run % 2) << fb) | r.integers(0, 1 << fb, live)
+    slots = r.permutation(n).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (vals.T, sizes, slots, key))
+
+
+CHAIN_CASES = ([("random", S, 1 << 16, 0.95), ("random", S, 70000, 0.5)]
+               + [("runs", s, 70001, 0.9) for s in (1, 20, 100, 300)])
+
+
+@pytest.mark.parametrize("with_mi,with_parent",
+                         [(True, True), (True, False), (False, True),
+                          (False, False)])
+@pytest.mark.parametrize("kind,s,n,thr", CHAIN_CASES)
+def test_chain_collapse_matches_plain(dev, kind, s, n, thr, with_mi,
+                                      with_parent):
+    sv, ss, sl, skey = (_random_case(dev, n) if kind == "random"
+                        else _runs_case(dev, s, n))
+    h = 3
+    g = torch.Generator(device=dev).manual_seed(n)
+    smi = (torch.where(torch.rand(n, device=dev, generator=g) < 0.1, 7, -1)
+           .to(torch.int32) if with_mi else None)
+    pk = (torch.arange(n, dtype=torch.int32, device=dev) if with_parent
+          else None)
+    pp = None if pk is None else pk.clone()
     k = kernels.chain_collapse(sv, ss, sl, skey, thr, h, smi, pk)
     p = kernels.chain_collapse_plain(sv, ss, sl, skey, thr, h, smi, pp)
-    assert int((k[3] >= 0).sum()) > n // 4
-    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3]), (pk, pp)):
+    assert int((k[1] > 0).sum()) < int((ss > 0).sum()) * 3 // 4
+    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3])):
         assert torch.equal(a, b)
+    if with_parent:
+        assert torch.equal(pk, pp)
     # the kernel sums each chain in another order than the log-step scan
     torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
 
