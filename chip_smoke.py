@@ -10,24 +10,30 @@ Phases:
      5 such runs after a warm-up), beside its
      bound (the bytes it must move over the card's memory rate, or its
      float32 operations over the card's rate, whichever is larger) and,
-     where one PyTorch call computes the same function, that call's time:
-     the mode-C kernels at 2^20 x 20, the exchange kernels on the 2^20 x 20
+     where one PyTorch call computes the same function, that call's time
+     (for lsh_keys a torch.matmul of the planes in use: the projections
+     alone): the mode-C kernels at 2^20 x 20, the exchange kernels on the 2^20 x 20
      local-phase result with e = 4096 (the fold after a global phase over
      four ranks' windows), the t-test on 2^20 cluster rows of 10 + 10
      samples, the read scorer on one part of 2^16 reads of 150 bp against
      2^22 keys (k = 31); then the mode-C kernels again at 2^21 x 20 (the
      capacity of phase 5's late iterations) and at 2^24 x 20; at each size
      chain_collapse is also timed without the parent fold (as the sharded
-     phases call it) beside a copy of the bytes it streams;
+     phases call it) beside a copy of the bytes it streams, lsh_keys is
+     held exact at h = 1 and 30 too, and the forest finalize takes is
+     measured (depth; a pointer-jumping round by torch indexing); at 2^20
+     also lsh_keys at 600 samples and finalize on the forest of 21
+     iterations;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
   5. full size: a 2^24 x 20 count matrix with the distribution of
      bench.py make_data, mode C through the CLI (-I 20 -N 0.8) cold and warm,
      with the mode-C kernels' launch counts, the result checked against the
-     matrix recomputed on the host; then one more warm run under
-     torch.profiler: the card's time by kernel (the permute's and the chain
-     collapse's kernels, the key sort, the rest) and its idle share;
+     matrix recomputed on the host, and the depth of the session's forest;
+     then one more warm run under torch.profiler: the card's time by kernel
+     (the permute's and the chain collapse's kernels, the key sorts, each
+     lsh_keys and finalize kernel, the rest) and its idle share;
   6. mode E at full size: a 2^24 x 20 matrix whose rows are the 31-mers of
      random source sequences (one abundance profile per source, a few per
      cent shifted between the groups), 20 FASTQs of 2^16 reads x 150 bp,
@@ -80,7 +86,7 @@ from kmerlsh_tpu_torch.cli import main as cli_main, params_from_args  # noqa: E4
 from kmerlsh_tpu_torch.cluster import engine  # noqa: E402
 from kmerlsh_tpu_torch.io import clusterio, counts as countsio  # noqa: E402
 from kmerlsh_tpu_torch.kernels import build  # noqa: E402
-from kmerlsh_tpu_torch.ops import reads, rng  # noqa: E402
+from kmerlsh_tpu_torch.ops import lsh, reads, rng  # noqa: E402
 from kmerlsh_tpu_torch.parallel import dist  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -90,6 +96,7 @@ SMALL = 1 << 20
 LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
 FULL = 1 << 24
 RANKS = 4                # phase 7's processes, all on the one card
+WIDE_S = 600             # many samples: lsh_keys' planes fill shared memory
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
@@ -269,6 +276,12 @@ def finalize_timed(vt, sz, sl, parent) -> tuple[dict, int]:
     k = kernels.finalize(vt, sz, sl, parent)
     p = kernels.finalize_plain(vt, sz, sl, parent)
     cap0 = parent.shape[0]
+    deepest, mean = testdata.forest_depth(parent)
+    up = parent.long()
+    rounds = max(deepest - 1, 1).bit_length() + 1
+    log(f"finalize at {cap0}: forest depth {deepest} at most, {mean:.3f} on "
+        f"average; pointer jumping would take {rounds} rounds of "
+        f"{cuda_ms(lambda: up[up]):.4f} ms (one round by torch indexing)")
     # state and parent in; members, lens, sizes and centroids out
     return dict(max_abs_err=_exact("finalize", zip(k, p)),
                 **timings(lambda: kernels.finalize(vt, sz, sl, parent),
@@ -354,6 +367,9 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
 
     k = kernels.lsh_keys(values, sizes, planes, h)
     p = kernels.lsh_keys_plain(values, sizes, planes, h)
+    # the library call: one float32 product of the h + 1 planes in use with
+    # the values, the projections alone (no keys, no quantization)
+    used = torch.cat([planes[:, :h], planes[:, lsh.H_MAX:]], dim=1)
     # values and sizes in, keys and projections out; h + 1 projections of
     # S multiply-adds per column
     res["lsh_keys"] = dict(
@@ -361,8 +377,10 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
         **timings(lambda: kernels.lsh_keys(values, sizes, planes, h),
                   lambda: kernels.lsh_keys_plain(values, sizes, planes, h),
                   4 * S * M + 12 * M + 4 * S * planes.shape[1],
-                  2 * S * M * (h + 1)))
+                  2 * S * M * (h + 1),
+                  library=lambda: torch.matmul(used.T, values)))
     key = k[0]
+    lsh_keys_cases(values, sizes, planes, h)
     skey, order = torch.sort(key, stable=True)
     slots = torch.arange(M, dtype=torch.int32, device=DEV)
 
@@ -421,8 +439,60 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
             0.95 - 0.01 * it, engine._active_h_of(na))
     res["finalize"], na = finalize_timed(vt, sz, sl, parent)
     log(f"finalize: {na} clusters over {M} rows")
+    if M == SMALL:
+        finalize_deep()
     log_kernels(res, M)
     return res
+
+
+def lsh_keys_cases(values, sizes, planes, h: int) -> None:
+    """lsh_keys exact at h = 1 and 30 beside the data's h and, at SMALL, at
+    WIDE_S samples on 2^16 columns (timed, logged only)."""
+    M = values.shape[1]
+    for hh in (1, lsh.H_MAX):
+        _exact(f"lsh_keys at h = {hh}",
+               zip(kernels.lsh_keys(values, sizes, planes, hh),
+                   kernels.lsh_keys_plain(values, sizes, planes, hh)))
+    log(f"lsh_keys at {M}: h = {h}, {kernels.lsh_plan(S, h)['planes']} sign "
+        f"planes computed; exact at h = 1 and 30 too")
+    if M != SMALL:
+        return
+    n = 1 << 16
+    r = np.random.default_rng(WIDE_S)
+    wide = torch.from_numpy(r.normal(size=(WIDE_S, n)).astype(np.float32))
+    wide = wide.to(DEV)
+    wsz = torch.from_numpy(r.integers(0, 3, n, dtype=np.int32)).to(DEV)
+    wpl = rng.draw_hyperplanes(1, 0, WIDE_S).to(DEV)
+    for hh in (1, h, lsh.H_MAX):
+        _exact(f"lsh_keys at S = {WIDE_S}, h = {hh}",
+               zip(kernels.lsh_keys(wide, wsz, wpl, hh),
+                   kernels.lsh_keys_plain(wide, wsz, wpl, hh)))
+    t = timings(lambda: kernels.lsh_keys(wide, wsz, wpl, h),
+                lambda: kernels.lsh_keys_plain(wide, wsz, wpl, h),
+                4 * WIDE_S * n + 12 * n + 4 * WIDE_S * wpl.shape[1],
+                2 * WIDE_S * n * (h + 1))
+    log(f"lsh_keys at S = {WIDE_S}, {n} columns: exact at h = 1, {h} and "
+        f"30; kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+
+def finalize_deep() -> None:
+    """finalize on the forest of a session as deep as phase 5's: SMALL x 20
+    through testdata.FOREST_ROUNDS iterations annealed as -I 20 -N 0.8,
+    exact against its plain version, timed (logged only)."""
+    counts = torch.from_numpy(make_counts(SMALL, seed=2)).to(DEV)
+    cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+    vt, sz = kernels.abundance_transform(counts, (cov / SMALL).float())
+    sl = torch.arange(SMALL, dtype=torch.int32, device=DEV)
+    parent = sl.clone()
+    for it in range(testdata.FOREST_ROUNDS):
+        vt, sz, sl = engine._one_iteration(
+            vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(DEV),
+            0.95 - 0.0075 * it, engine._active_h_of(int((sz > 0).sum())))
+    entry, na = finalize_timed(vt, sz, sl, parent)
+    log(f"finalize after {testdata.FOREST_ROUNDS} iterations: {na} clusters "
+        f"over {SMALL} rows, exact; kernel {entry['ms']:.4f} ms  plain "
+        f"{entry['plain_ms']:.4f} ms")
 
 
 def phase_kernels_mode_e() -> dict:
@@ -602,9 +672,20 @@ def phase_full(tmp: str) -> dict:
             "--only", "-M", "C", "-I", "20", "-N", "0.8", "--seed", "0",
             "--work-dir", tmp, "-F", clust, "-D", os.path.join(tmp, "tmp")]
     torch.cuda.reset_peak_memory_stats(DEV)
+    forest = {}
+    real_finalize = kernels.finalize
+
+    def keep_forest(vt, sz, sl, parent):   # the session's forest, kept
+        forest["parent"] = parent.clone()
+        return real_finalize(vt, sz, sl, parent)
+
+    kernels.finalize = keep_forest
     kernels.reset_launches()
     t0 = time.perf_counter()
-    cli_main(argv)
+    try:
+        cli_main(argv)
+    finally:
+        kernels.finalize = real_finalize
     cold = time.perf_counter() - t0
     launches = {k: kernels.launches[k] for k in MODE_C}
     missing = [k for k, n in launches.items() if n == 0]
@@ -626,13 +707,18 @@ def phase_full(tmp: str) -> dict:
         f"{warm:.3f} s (device {warm_device:.3f} s), peak device memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"full: programs {engine.LAST_SESSION['programs']}")
+    deepest, mean = testdata.forest_depth(forest.pop("parent"))
+    log(f"full: the session's forest is {deepest} deep at most, {mean:.3f} "
+        f"on average")
     return dict(launches=launches, clusters=n_clusters, saved=saved,
                 cold=cold, warm=warm, counts=counts, v_kmers=v_kmers,
                 argv=argv)
 
 
 def kernel_group(name: str) -> str:
-    """The row of phase 5's device-time split a device event belongs to."""
+    """The row of phase 5's device-time split a device event belongs to:
+    a group, or the kernel's own name (the template arguments kept)."""
+    name = name.removeprefix("void ").split("(")[0]
     if name.startswith("kl_permute"):
         return "permute_state (kl_permute*)"
     if name.startswith("kl_chain"):
@@ -669,6 +755,12 @@ def trace_mode_c(argv: list[str]) -> None:
     for name in ("permute_state (kl_permute*)", "chain_collapse (kl_chain*)"):
         if name not in by:
             raise AssertionError(f"full: no {name} kernel in the trace")
+    for kernel, names in (("lsh_keys", ("kl_project", "kl_quantize")),
+                          ("finalize", ("kl_fin_",))):
+        if not any(g.startswith(names[0]) for g in by):
+            raise AssertionError(f"full: no {names[0]}* kernel in the trace")
+        ms = sum(t for g, (t, _) in by.items() if g.startswith(names))
+        log(f"full traced run: {kernel} ({'*, '.join(names)}*) {ms:.3f} ms")
     log(f"full traced run (warm, under torch.profiler): wall {wall:.4f} s, "
         f"device session {engine.LAST_SESSION['device_seconds']:.4f} s, "
         f"card busy {busy:.4f} s = idle {1 - busy / wall:.2%}")

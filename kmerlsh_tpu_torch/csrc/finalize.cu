@@ -3,120 +3,248 @@
 // Replaces kmerlsh_tpu/cluster/engine.py _finalize_grouped (with _fwd_fill
 // and its slot-map and segment scatters). The reference resolves roots by
 // `jumps` rounds of pointer doubling over the whole parent array and groups
-// rows with two stable sorts and log-step fills, because XLA has neither
-// per-thread loops nor cheap atomics. Here:
-//   1. a slot map: alive[slot] for each alive cluster column;
-//   2. one thread per row follows its parent chain to the root (the forest
-//      is shallow: one level per iteration at most); a row whose root is an
-//      alive cluster adds itself to that cluster's count and takes the
-//      minimum row id (its first member) with atomics;
-//   3. each row's sort key is its cluster's first member (dead-rooted rows
-//      get cap0 and sink); torch.sort(stable=True) of that key is the flat
-//      member list: clusters by smallest member, members ascending;
-//   4. the alive clusters' first members, sorted the same way, give the
-//      cluster order; one thread per cluster gathers its length, size and
-//      centroid column.
-// The output equals the reference's buffer (flat members, lengths, sizes,
-// centroids) wherever the reference's jump bound covers the forest.
+// rows with two stable sorts and log-step fills. Here, over rows r < cap0,
+// state columns i < fc and sorted positions p, with no atomics:
+//   1. link = a copy of parent (cudaMemcpyAsync);
+//   2. kl_fin_mark: link[slot] |= FLAG for each alive column: the flag marks
+//      the alive roots;
+//   3. kl_fin_roots: one thread per row chases link to its root; key[r] =
+//      the root if it carries the flag, else cap0. Writing each resolved
+//      root back over link[r] and link[parent], so that later chases stop
+//      early, made the call 0.36 ms slower at 2^24 rows (PERF.md): a
+//      session's forest is a few links deep, and the writes cost more than
+//      the loads they save;
+//   4. torch.sort(key, stable=True), in the wrapper: rows by root. Within a
+//      root's segment the rows ascend, so its first row is the cluster's
+//      smallest member and its length the member count; dead-rooted rows
+//      come last;
+//   5. kl_fin_heads: each alive segment's first position writes
+//      link[root] = -(start + 1), its last position end[root] = its end;
+//   6. kl_fin_clusters: each alive column whose slot is a root finds its
+//      segment through link[slot] and takes its first member as its cluster
+//      key, its length and its start; the others take cap0 and 0;
+//   7. torch.sort of the cluster keys (stable), in the wrapper: the cluster
+//      order, clusters by smallest member;
+//   8. kernels.permute_state (K2), in the wrapper: values, sizes and
+//      lengths in cluster order;
+//   9. kl_fin_block_sums, kl_fin_scan, kl_fin_place: an exclusive scan of
+//      the lengths in cluster order gives each cluster's offset in flat;
+//      link[root] = offset - start; the centroids of dead columns are zeroed;
+//  10. kl_fin_scatter: flat[p + link[root]] = the row at p for positions of
+//      alive segments, flat[p] for the dead-rooted tail.
+// The outputs equal the plain version's (kernels.finalize_plain) bit for
+// bit for state columns with distinct slots, as a session's are. Link
+// values: a row id, a row id with FLAG (an alive root, from step 2), a
+// segment start below 0 (after step 5), an offset difference (after step 9);
+// each step reads link only where the step before left the meaning it needs.
 //
-// Bound on the H100: memory latency of the dependent parent loads in step 2
-// and the two sorts; everything else is one pass over [cap0] or [S, fc].
+// Bound on the H100: the rows' sort and the dependent loads of the chases
+// in step 3 (a warp waits for its deepest lane); every other step is one
+// pass over [cap0] or [fc] with a gather of fc entries.
 
 #include "common.cuh"
 
-__global__ void kl_fin_slot_map(long long fc, const int* __restrict__ sizes,
-                                const int* __restrict__ slots,
-                                int* __restrict__ alive_of_slot) {
+#define KL_FIN_FLAG ((int)0x80000000)
+#define KL_FIN_CHUNK 1024   // clusters of one block of the offset scan
+
+__global__ void kl_fin_mark(long long fc, const int* __restrict__ sizes,
+                            const int* __restrict__ slots,
+                            int* __restrict__ link) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < fc && sizes[i] > 0) alive_of_slot[slots[i]] = 1;
+  if (i < fc && sizes[i] > 0) link[slots[i]] |= KL_FIN_FLAG;
 }
 
-__global__ void kl_fin_roots(long long cap0, const int* __restrict__ parent,
-                             const int* __restrict__ alive_of_slot,
-                             int* __restrict__ root_key,
-                             int* __restrict__ first_of_root,
-                             int* __restrict__ count) {
+__global__ void kl_fin_roots(long long cap0, const int* __restrict__ link,
+                             int* __restrict__ key) {
   long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= cap0) return;
   int x = (int)r;
-  for (long long step = 0; step < cap0; ++step) {
-    int px = parent[x];
-    if (px == x) break;
-    x = px;
+  int p = link[x];
+  for (long long step = 0; (p & ~KL_FIN_FLAG) != x && step < cap0; ++step) {
+    x = p & ~KL_FIN_FLAG;
+    p = link[x];
   }
-  if (alive_of_slot[x]) {
-    root_key[r] = x;
-    atomicMin(first_of_root + x, (int)r);
-    atomicAdd(count + x, 1);
-  } else {
-    root_key[r] = (int)cap0;
+  // x is the root and p its entry, flagged if the root is alive
+  key[r] = (p & KL_FIN_FLAG) ? x : (int)cap0;
+}
+
+__global__ void kl_fin_heads(long long cap0, const int* __restrict__ skey,
+                             int* __restrict__ link, int* __restrict__ end) {
+  long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= cap0) return;
+  const int k = skey[p];
+  if (k == (int)cap0) return;
+  if (p == 0 || skey[p - 1] != k) link[k] = -(int)(p + 1);
+  if (p == cap0 - 1 || skey[p + 1] != k) end[k] = (int)(p + 1);
+}
+
+__global__ void kl_fin_clusters(long long fc, int cap0,
+                                const int* __restrict__ sizes,
+                                const int* __restrict__ slots,
+                                const int* __restrict__ link,
+                                const int* __restrict__ end,
+                                const long long* __restrict__ rows,
+                                int* __restrict__ ckey, int* __restrict__ clen,
+                                int* __restrict__ cstart) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= fc) return;
+  int key = cap0, len = 0, start = 0;
+  if (sizes[i] > 0) {
+    const int s = slots[i];
+    const int v = link[s];
+    // an alive root: its segment's start in [-cap0, -1]; a slot that is no
+    // root keeps its flagged parent, below -cap0 (cap0 <= 2^30), and gets
+    // no cluster, as in the plain version
+    if (v < 0 && v >= -cap0) {
+      start = -v - 1;
+      len = end[s] - start;
+      key = (int)rows[start];
+    }
+  }
+  ckey[i] = key;
+  clen[i] = len;
+  cstart[i] = start;
+}
+
+// Exclusive prefix sum of v over the block (a multiple of 32 threads, at most
+// 1024); *total gets the block's sum. Called once a launch, or with a
+// __syncthreads() between calls.
+__device__ __forceinline__ int kl_block_scan(int v, int* total) {
+  __shared__ int ws[32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int t = lane < nw ? ws[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
+      if (lane >= o) t += y;
+    }
+    ws[lane] = t;
+  }
+  __syncthreads();
+  *total = ws[nw - 1];
+  return (w ? ws[w - 1] : 0) + x - v;
+}
+
+__global__ void __launch_bounds__(KL_FIN_CHUNK)
+    kl_fin_block_sums(long long fc, const int* __restrict__ lens,
+                      int* __restrict__ sums) {
+  const long long k = (long long)blockIdx.x * KL_FIN_CHUNK + threadIdx.x;
+  int total;
+  kl_block_scan(k < fc ? lens[k] : 0, &total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+}
+
+// One block: the block sums into exclusive offsets, in place.
+__global__ void __launch_bounds__(KL_FIN_CHUNK)
+    kl_fin_scan(int* __restrict__ sums, int nb) {
+  int carry = 0;
+  for (int b0 = 0; b0 < nb; b0 += KL_FIN_CHUNK) {
+    const int b = b0 + threadIdx.x;
+    int total;
+    const int before = kl_block_scan(b < nb ? sums[b] : 0, &total);
+    if (b < nb) sums[b] = carry + before;
+    carry += total;
+    __syncthreads();
   }
 }
 
-__global__ void kl_fin_keys(long long cap0, long long fc,
-                            const int* __restrict__ root_key,
-                            const int* __restrict__ first_of_root,
-                            const int* __restrict__ sizes,
-                            const int* __restrict__ slots,
-                            int* __restrict__ member_key,
-                            int* __restrict__ cluster_key) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < cap0) {
-    int k = root_key[r];
-    member_key[r] = k == (int)cap0 ? k : first_of_root[k];
-  }
-  if (r < fc)
-    cluster_key[r] = sizes[r] > 0 ? first_of_root[slots[r]] : (int)cap0;
-}
-
-__global__ void kl_fin_gather(long long fc, int S,
-                              const long long* __restrict__ order,
-                              const int* __restrict__ sizes,
-                              const int* __restrict__ slots,
-                              const int* __restrict__ count,
-                              const float* __restrict__ vals,
-                              int* __restrict__ lens, int* __restrict__ csizes,
-                              float* __restrict__ cents) {
-  long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(KL_FIN_CHUNK)
+    kl_fin_place(long long fc, int S, const long long* __restrict__ order,
+                 const int* __restrict__ slots,
+                 const int* __restrict__ cstart, const int* __restrict__ lens,
+                 const int* __restrict__ csizes,
+                 const int* __restrict__ sums, int* __restrict__ link,
+                 float* __restrict__ cents) {
+  const long long k = (long long)blockIdx.x * KL_FIN_CHUNK + threadIdx.x;
+  const int len = k < fc ? lens[k] : 0;
+  int total;
+  const int off = sums[blockIdx.x] + kl_block_scan(len, &total);
   if (k >= fc) return;
-  long long i = order[k];
-  bool alive = sizes[i] > 0;
-  lens[k] = alive ? count[slots[i]] : 0;
-  csizes[k] = alive ? sizes[i] : 0;
-  for (int s = 0; s < S; ++s)
-    cents[(long long)s * fc + k] = alive ? vals[(long long)s * fc + i] : 0.f;
+  if (len > 0) {
+    const long long i = order[k];
+    link[slots[i]] = off - cstart[i];
+  }
+  if (csizes[k] == 0)
+    for (int s = 0; s < S; ++s) cents[(long long)s * fc + k] = 0.f;
 }
 
-KL_EXPORT int kl_finalize_keys(long long cap0, long long fc, const void* sizes,
-                               const void* slots, const void* parent,
-                               void* alive_of_slot, void* root_key, void* first_of_root,
-                               void* count, void* member_key,
-                               void* cluster_key, void* stream) {
+__global__ void kl_fin_scatter(long long cap0, const int* __restrict__ skey,
+                               const long long* __restrict__ rows,
+                               const int* __restrict__ link,
+                               int* __restrict__ flat) {
+  long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= cap0) return;
+  const int k = skey[p];
+  const long long d = k == (int)cap0 ? 0 : link[k];
+  flat[p + d] = (int)rows[p];
+}
+
+// Steps 1-3: link and the rows' sort key.
+KL_EXPORT int kl_finalize_roots(long long cap0, long long fc,
+                                const void* sizes, const void* slots,
+                                const void* parent, void* link, void* key,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
+  cudaError_t err = cudaMemcpyAsync(link, parent, (size_t)cap0 * sizeof(int),
+                                    cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
   if (fc > 0)
-    kl_fin_slot_map<<<kl_blocks(fc, threads), threads, 0, st>>>(
-        fc, (const int*)sizes, (const int*)slots, (int*)alive_of_slot);
+    kl_fin_mark<<<kl_blocks(fc, threads), threads, 0, st>>>(
+        fc, (const int*)sizes, (const int*)slots, (int*)link);
   kl_fin_roots<<<kl_blocks(cap0, threads), threads, 0, st>>>(
-      cap0, (const int*)parent, (const int*)alive_of_slot, (int*)root_key,
-      (int*)first_of_root, (int*)count);
-  long long n = cap0 > fc ? cap0 : fc;
-  kl_fin_keys<<<kl_blocks(n, threads), threads, 0, st>>>(
-      cap0, fc, (const int*)root_key, (const int*)first_of_root,
-      (const int*)sizes, (const int*)slots, (int*)member_key,
-      (int*)cluster_key);
+      cap0, (const int*)link, (int*)key);
   return (int)cudaGetLastError();
 }
 
-KL_EXPORT int kl_finalize_gather(long long fc, int S, const void* order,
-                                 const void* sizes, const void* slots,
-                                 const void* count, const void* vals,
-                                 void* lens, void* csizes, void* cents,
-                                 void* stream) {
+// Steps 5-6, on the rows sorted by key (skey, rows).
+KL_EXPORT int kl_finalize_segments(long long cap0, long long fc,
+                                   const void* skey, const void* rows,
+                                   const void* sizes, const void* slots,
+                                   void* link, void* end, void* ckey,
+                                   void* clen, void* cstart, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
-  kl_fin_gather<<<kl_blocks(fc, threads), threads, 0, (cudaStream_t)stream>>>(
-      fc, S, (const long long*)order, (const int*)sizes, (const int*)slots,
-      (const int*)count, (const float*)vals, (int*)lens, (int*)csizes,
-      (float*)cents);
+  kl_fin_heads<<<kl_blocks(cap0, threads), threads, 0, st>>>(
+      cap0, (const int*)skey, (int*)link, (int*)end);
+  if (fc > 0)
+    kl_fin_clusters<<<kl_blocks(fc, threads), threads, 0, st>>>(
+        fc, (int)cap0, (const int*)sizes, (const int*)slots,
+        (const int*)link, (const int*)end, (const long long*)rows,
+        (int*)ckey, (int*)clen, (int*)cstart);
+  return (int)cudaGetLastError();
+}
+
+// Steps 9-10, on the cluster order and the columns moved into it (lens,
+// csizes, cents); sums holds ceil(fc / KL_FIN_CHUNK) ints.
+KL_EXPORT int kl_finalize_place(long long cap0, long long fc, int S,
+                                const void* order, const void* slots,
+                                const void* cstart, const void* lens,
+                                const void* csizes, const void* skey,
+                                const void* rows, void* sums, void* link,
+                                void* cents, void* flat, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fc > 0) {
+    const int nb = (int)((fc + KL_FIN_CHUNK - 1) / KL_FIN_CHUNK);
+    kl_fin_block_sums<<<nb, KL_FIN_CHUNK, 0, st>>>(fc, (const int*)lens,
+                                                   (int*)sums);
+    kl_fin_scan<<<1, KL_FIN_CHUNK, 0, st>>>((int*)sums, nb);
+    kl_fin_place<<<nb, KL_FIN_CHUNK, 0, st>>>(
+        fc, S, (const long long*)order, (const int*)slots,
+        (const int*)cstart, (const int*)lens, (const int*)csizes,
+        (const int*)sums, (int*)link, (float*)cents);
+  }
+  const int threads = 256;
+  kl_fin_scatter<<<kl_blocks(cap0, threads), threads, 0, st>>>(
+      cap0, (const int*)skey, (const long long*)rows, (const int*)link,
+      (int*)flat);
   return (int)cudaGetLastError();
 }

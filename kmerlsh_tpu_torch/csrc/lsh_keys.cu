@@ -5,31 +5,39 @@
 // iteration, kmerlsh_tpu/ops/lsh.py signatures_t followed by
 // kmerlsh_tpu/cluster/engine.py _combined_sort_key.
 //
-// Bound on the H100: device-memory bandwidth. Per column the projection
-// reads S floats and does 31·S multiply-adds, far below the card's float32
-// rate, so one pass over the [S, M] matrix is the cost. Design: one thread
-// per column reads its S values once (neighbouring threads, neighbouring
-// addresses) against planes staged in shared memory, keeps the 31 sums in
-// registers, and writes the bucket key and the secondary projection. The
-// alive min/max of the secondary projection, which the quantization needs,
-// is reduced in the same pass (warp shuffles, one atomic per warp on an
-// order-preserving int encoding), so the quantize pass reads only the two
-// [M] vectors. Sums run s = 0, 1, … with separately rounded multiply and
-// add (__fmul_rn/__fadd_rn, never contracted), the order of the plain
-// PyTorch version, so the two agree bit for bit.
+// K1a kl_transform_kernel: one thread per column, one pass over the uint16
+// counts; bound by device-memory bandwidth.
+//
+// K1b lsh_keys. Per column the projection reads S floats and sums h + 1
+// projections: the h sign planes in use and the secondary plane H_MAX. Each
+// runs s = 0, 1, ... with a separately rounded multiply and add
+// (__fmul_rn/__fadd_rn, never contracted), the order of the plain PyTorch
+// version, so the two agree bit for bit. That costs two float32
+// instructions a term: at 2^24 x 20 and h = 24 about 1.7e10, ~0.5 ms of the
+// H100's issue rate, against ~0.46 ms to move the bytes once. Design:
+//   - only the planes in use: kl_project is instantiated for T = 4, 8, ...,
+//     28, 30 sign planes (the least T >= h) plus the secondary plane, the
+//     accumulators in registers at compile-time indices;
+//   - the planes in use are staged in shared memory, each sample's row
+//     padded to whole float4s: one broadcast load brings 4 plane operands;
+//   - four columns a thread, neighbouring threads on neighbouring columns
+//     for each of the four: one plane operand serves four products;
+//   - the values come by cp.async into a ring of 8 rows in shared memory,
+//     each thread copying and reading back only its own columns (no
+//     barrier), so 7 samples' loads are in flight while one sample's terms
+//     are summed;
+//   - the alive min/max of the secondary projection is reduced per warp
+//     by shuffles on an order-preserving unsigned encoding; a warp skips
+//     its atomic when it cannot lower the global word (so few are made),
+//     and a memset starts both words: no initialising launch.
+// Reading the planes from the constant bank instead (copied there on the
+// stream, read at a warp-uniform index) was slower on the H100 at every
+// loop shape tried: PERF.md, tools/kernel_variants.py.
+// kl_quantize_kernel then reads the keys and projections once and ORs the
+// quantized secondary projection into the keys. Launch arithmetic (T, shared
+// bytes): kmerlsh_tpu_torch.kernels.lsh_plan, checked here.
 
 #include "common.cuh"
-
-#include <limits.h>
-
-__device__ __forceinline__ int kl_ordered(float f) {
-  int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7FFFFFFF;
-}
-
-__device__ __forceinline__ float kl_unordered(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7FFFFFFF);
-}
 
 __global__ void kl_transform_kernel(const uint16_t* __restrict__ counts,
                                     const float* __restrict__ v, int S,
@@ -47,76 +55,6 @@ __global__ void kl_transform_kernel(const uint16_t* __restrict__ counts,
   sizes[m] = ((float)total > keep_thr) ? 1 : 0;
 }
 
-__global__ void kl_minmax_init(int* minmax) {
-  minmax[0] = kl_ordered(__int_as_float(0x7F800000));   // +inf
-  minmax[1] = kl_ordered(__int_as_float(0xFF800000));   // -inf
-}
-
-__global__ void kl_project_kernel(const float* __restrict__ values,
-                                  long long ld, int S, long long M,
-                                  const float* __restrict__ planes,
-                                  const int* __restrict__ sizes, int h,
-                                  int* __restrict__ keys,
-                                  float* __restrict__ proj,
-                                  int* __restrict__ minmax) {
-  extern __shared__ float sp[];   // [S][KL_PLANES]
-  for (int i = threadIdx.x; i < S * KL_PLANES; i += blockDim.x) sp[i] = planes[i];
-  __syncthreads();
-
-  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  bool active = m < M;
-  float acc[KL_PLANES];
-#pragma unroll
-  for (int j = 0; j < KL_PLANES; ++j) acc[j] = 0.f;
-  if (active) {
-    for (int s = 0; s < S; ++s) {
-      float x = values[(long long)s * ld + m];
-      const float* row = sp + s * KL_PLANES;
-#pragma unroll
-      for (int j = 0; j < KL_PLANES; ++j)
-        acc[j] = __fadd_rn(acc[j], __fmul_rn(row[j], x));
-    }
-  }
-  int key = 0;
-#pragma unroll
-  for (int j = 0; j < KL_H_MAX; ++j)
-    if (j < h && acc[j] >= 0.f) key |= 1 << (h - 1 - j);
-  bool alive = active && sizes[m] > 0;
-  float p = acc[KL_H_MAX];
-  if (active) {
-    keys[m] = alive ? key : KL_BIG_KEY;
-    proj[m] = p;
-  }
-  int lo = alive ? kl_ordered(p) : INT_MAX;
-  int hi = alive ? kl_ordered(p) : INT_MIN;
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_down_sync(0xFFFFFFFFu, lo, off));
-    hi = max(hi, __shfl_down_sync(0xFFFFFFFFu, hi, off));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    if (lo != INT_MAX) atomicMin(minmax, lo);
-    if (hi != INT_MIN) atomicMax(minmax + 1, hi);
-  }
-}
-
-__global__ void kl_quantize_kernel(long long M, const int* __restrict__ minmax,
-                                   int free_bits, const float* __restrict__ proj,
-                                   int* __restrict__ keys) {
-  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  int k = keys[m];
-  if (k == KL_BIG_KEY) return;
-  float pmin = kl_unordered(minmax[0]);
-  float pmax = kl_unordered(minmax[1]);
-  float span = fmaxf(__fsub_rn(pmax, pmin), 1e-20f);
-  int levels = 1 << free_bits;
-  float scaled = __fmul_rn(__fdiv_rn(__fsub_rn(proj[m], pmin), span),
-                           (float)levels);
-  int q = (int)scaled;
-  q = min(max(q, 0), levels - 1);
-  keys[m] = (k << free_bits) | q;
-}
-
 KL_EXPORT int kl_transform(const void* counts, const void* v, int S,
                            long long M, float keep_thr, void* values,
                            void* sizes, void* stream) {
@@ -128,22 +66,199 @@ KL_EXPORT int kl_transform(const void* counts, const void* v, int S,
   return (int)cudaGetLastError();
 }
 
+#define KL_PROJ_THREADS 128
+#define KL_PROJ_COLS 4           // columns a thread
+#define KL_PROJ_TILE (KL_PROJ_THREADS * KL_PROJ_COLS)   // columns a block
+#define KL_PROJ_RING 8           // value rows a thread has in shared memory
+#define KL_SMEM_LIMIT 232448     // shared bytes one block may use on Hopper
+
+// Order-preserving unsigned encoding of a float: a larger float, a larger
+// word.
+__device__ __forceinline__ unsigned kl_ordered(float f) {
+  unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
+
+__device__ __forceinline__ float kl_unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? u & 0x7FFFFFFFu : ~u);
+}
+
+// Start the copy of value row s (when s < S) of this thread's columns into
+// its ring slot s % KL_PROJ_RING, and commit it as one group (empty past S).
+__device__ __forceinline__ void kl_issue_row(float* ring,
+                                             const float* __restrict__ values,
+                                             long long ld, int s, int S,
+                                             long long m0, long long M) {
+  if (s < S) {
+    const float* row = values + (long long)s * ld;
+    float* slot = ring + (s % KL_PROJ_RING) * KL_PROJ_TILE + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c) {
+      const long long m = m0 + (long long)c * KL_PROJ_THREADS;
+      if (m < M) kl_cp_async4(slot + c * KL_PROJ_THREADS, row + m);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int T>
+__global__ void __launch_bounds__(KL_PROJ_THREADS) kl_project(
+    const float* __restrict__ values, long long ld, int S, long long M,
+    const float* __restrict__ planes, const int* __restrict__ sizes, int h,
+    int* __restrict__ keys, float* __restrict__ proj,
+    unsigned* __restrict__ minmax) {
+  // accumulator j: sign plane j < T, then the secondary plane H_MAX
+  constexpr int NP = T + 1, NQ = (NP + 3) / 4;
+  // the planes in use [S][NQ] as float4s, then the ring of value rows
+  // [KL_PROJ_RING][KL_PROJ_TILE]
+  extern __shared__ float4 sp[];
+  float* ring = reinterpret_cast<float*>(sp + S * NQ);
+  const long long m0 = (long long)blockIdx.x * KL_PROJ_TILE + threadIdx.x;
+  for (int r = 0; r < KL_PROJ_RING - 1; ++r)
+    kl_issue_row(ring, values, ld, r, S, m0, M);
+  float* spf = reinterpret_cast<float*>(sp);
+  for (int i = threadIdx.x; i < S * 4 * NQ; i += KL_PROJ_THREADS) {
+    const int s = i / (4 * NQ), j = i - s * 4 * NQ;
+    spf[i] = j < NP ? planes[s * KL_PLANES + (j < T ? j : KL_H_MAX)] : 0.f;
+  }
+  __syncthreads();
+  float acc[KL_PROJ_COLS][NP];
+#pragma unroll
+  for (int c = 0; c < KL_PROJ_COLS; ++c)
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc[c][j] = 0.f;
+  for (int s = 0; s < S; ++s) {
+    kl_issue_row(ring, values, ld, s + KL_PROJ_RING - 1, S, m0, M);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(KL_PROJ_RING - 1)
+                 : "memory");   // this thread's row s has arrived
+    const float* slot = ring + (s % KL_PROJ_RING) * KL_PROJ_TILE + threadIdx.x;
+    float x[KL_PROJ_COLS];
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c) x[c] = slot[c * KL_PROJ_THREADS];
+    const float4* row = sp + s * NQ;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 p4 = row[q];
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (4 * q + k < NP) {
+#pragma unroll
+          for (int c = 0; c < KL_PROJ_COLS; ++c)
+            acc[c][4 * q + k] =
+                __fadd_rn(acc[c][4 * q + k], __fmul_rn(p[k], x[c]));
+        }
+      }
+    }
+  }
+
+  unsigned lo = 0xFFFFFFFFu, hi = 0xFFFFFFFFu;   // least word, least ~word
+#pragma unroll
+  for (int c = 0; c < KL_PROJ_COLS; ++c) {
+    const long long m = m0 + (long long)c * KL_PROJ_THREADS;
+    if (m >= M) continue;
+    int key = 0;
+#pragma unroll
+    for (int j = 0; j < T; ++j)
+      if (j < h && acc[c][j] >= 0.f) key |= 1 << (h - 1 - j);
+    const float p = acc[c][T];
+    const bool alive = sizes[m] > 0;
+    keys[m] = alive ? key : KL_BIG_KEY;
+    proj[m] = p;
+    if (alive) {
+      const unsigned u = kl_ordered(p);
+      lo = min(lo, u);
+      hi = min(hi, ~u);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, off));
+    hi = min(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, off));
+  }
+  // the words only fall: a stale read can only let an atomic through
+  if ((threadIdx.x & 31) == 0) {
+    if (lo < __ldcg(minmax)) atomicMin(minmax, lo);
+    if (hi < __ldcg(minmax + 1)) atomicMin(minmax + 1, hi);
+  }
+}
+
+__global__ void kl_quantize_kernel(long long M,
+                                   const unsigned* __restrict__ minmax,
+                                   int free_bits, const float* __restrict__ proj,
+                                   int* __restrict__ keys) {
+  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  int k = keys[m];
+  if (k == KL_BIG_KEY) return;
+  float pmin = kl_unordered(minmax[0]);
+  float pmax = kl_unordered(~minmax[1]);
+  float span = fmaxf(__fsub_rn(pmax, pmin), 1e-20f);
+  int levels = 1 << free_bits;
+  float scaled = __fmul_rn(__fdiv_rn(__fsub_rn(proj[m], pmin), span),
+                           (float)levels);
+  int q = (int)scaled;
+  q = min(max(q, 0), levels - 1);
+  keys[m] = (k << free_bits) | q;
+}
+
+template <int T>
+static cudaError_t kl_project_launch(const float* values, long long ld, int S,
+                                     long long M, const float* planes,
+                                     const int* sizes, int h, int smem,
+                                     int* keys, float* proj, unsigned* minmax,
+                                     cudaStream_t st) {
+  static unsigned raised = 0;   // devices whose shared-memory limit is raised
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32 || !(raised >> dev & 1u)) {
+    err = cudaFuncSetAttribute(kl_project<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               KL_SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) raised |= 1u << dev;
+  }
+  kl_project<T><<<kl_blocks(M, KL_PROJ_TILE), KL_PROJ_THREADS, smem, st>>>(
+      values, ld, S, M, planes, sizes, h, keys, proj, minmax);
+  return cudaGetLastError();
+}
+
+// T: the sign planes computed (4, 8, ..., 28 or 30, at least h); smem: S
+// rows of ceil((T + 1) / 4) float4s and the ring.
 KL_EXPORT int kl_lsh_keys(const void* values, long long ld, int S, long long M,
-                          const void* planes, const void* sizes, int h,
-                          int free_bits, void* keys, void* proj, void* minmax,
-                          void* stream) {
+                          const void* planes, const void* sizes, int h, int T,
+                          int smem, int free_bits, void* keys, void* proj,
+                          void* minmax, void* stream) {
+  if (h < 1 || h > T || smem > KL_SMEM_LIMIT ||
+      smem != S * 16 * ((T + 4) / 4) +
+                  KL_PROJ_RING * KL_PROJ_TILE * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int threads = 256;
-  size_t smem = (size_t)S * KL_PLANES * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kl_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = cudaMemsetAsync(minmax, 0xFF, 2 * sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
-  kl_minmax_init<<<1, 1, 0, st>>>((int*)minmax);
-  kl_project_kernel<<<kl_blocks(M, threads), threads, smem, st>>>(
-      (const float*)values, ld, S, M, (const float*)planes,
-      (const int*)sizes, h, (int*)keys, (float*)proj, (int*)minmax);
+#define KL_PROJECT_CASE(N)                                                   \
+  case N:                                                                    \
+    err = kl_project_launch<N>((const float*)values, ld, S, M,               \
+                               (const float*)planes, (const int*)sizes, h,   \
+                               smem, (int*)keys, (float*)proj,               \
+                               (unsigned*)minmax, st);                       \
+    break;
+  switch (T) {
+    KL_PROJECT_CASE(4)
+    KL_PROJECT_CASE(8)
+    KL_PROJECT_CASE(12)
+    KL_PROJECT_CASE(16)
+    KL_PROJECT_CASE(20)
+    KL_PROJECT_CASE(24)
+    KL_PROJECT_CASE(28)
+    KL_PROJECT_CASE(30)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KL_PROJECT_CASE
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
   kl_quantize_kernel<<<kl_blocks(M, threads), threads, 0, st>>>(
-      M, (const int*)minmax, free_bits, (const float*)proj, (int*)keys);
+      M, (const unsigned*)minmax, free_bits, (const float*)proj, (int*)keys);
   return (int)cudaGetLastError();
 }

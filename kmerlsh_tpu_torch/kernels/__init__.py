@@ -36,6 +36,8 @@ from kmerlsh_tpu_torch.ops.segment import segment_starts
 MAX_CHAIN_LOG = 15   # chains are cut at positions that are multiples of 2^15
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 STAGE_BYTES = 48 * 1024   # the tile a block of K2 or K3 stages, at most
+LSH_PLANES = (4, 8, 12, 16, 20, 24, 28, 30)   # K1b's sign-plane counts
+LSH_RING = 8              # value rows a K1b block keeps in flight
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
@@ -71,7 +73,8 @@ def _check(t: torch.Tensor, dtype: torch.dtype, name: str,
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: want {ndim}-d {dtype}, got "
                          f"{t.dim()}-d {t.dtype}")
-    if t.stride(-1) != 1 or (ndim == 1 and not t.is_contiguous()):
+    if t.numel() and (t.stride(-1) != 1
+                      or (ndim == 1 and not t.is_contiguous())):
         raise ValueError(f"{name}: the last axis must be contiguous")
 
 
@@ -123,6 +126,24 @@ def lsh_keys_plain(values_t, sizes, hyperplanes, h: int):
     return lsh.combined_sort_key(keys, proj, sizes, h), proj
 
 
+def lsh_plan(S: int, h: int) -> dict:
+    """Launch arithmetic of ``lsh_keys`` at S rows and h bucket bits:
+    ``planes``, the sign planes the kernel computes (the least of
+    LSH_PLANES ≥ h; the secondary plane comes on top); blocks of
+    ``threads`` threads and ``cols`` columns; ``smem``, the bytes of a
+    block's S rows of the planes in use padded to whole float4s and of its
+    ring of LSH_RING value rows."""
+    if not 1 <= h <= lsh.H_MAX:
+        raise ValueError(f"h = {h} outside [1, {lsh.H_MAX}]")
+    T = next(t for t in LSH_PLANES if t >= h)
+    threads, cols = 128, 4 * 128
+    smem = 16 * S * -(-(T + 1) // 4) + 4 * LSH_RING * cols
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"lsh_keys: S = {S} rows need {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return dict(planes=T, smem=smem, threads=threads, cols=cols)
+
+
 def lsh_keys(values_t: torch.Tensor, sizes: torch.Tensor,
              hyperplanes: torch.Tensor, h: int):
     """values f32 [S, M] (rows may be strided), sizes int32 [M], planes f32
@@ -137,15 +158,15 @@ def lsh_keys(values_t: torch.Tensor, sizes: torch.Tensor,
     if planes.shape != (S, lsh.H_MAX + 1):
         raise ValueError(f"hyperplanes: want {(S, lsh.H_MAX + 1)}, got "
                          f"{tuple(planes.shape)}")
-    if not 1 <= h <= lsh.H_MAX:
-        raise ValueError(f"h = {h} outside [1, {lsh.H_MAX}]")
+    plan = lsh_plan(S, h)
     keys = torch.empty(M, dtype=torch.int32, device=values_t.device)
     proj = torch.empty(M, dtype=torch.float32, device=values_t.device)
     minmax = torch.empty(2, dtype=torch.int32, device=values_t.device)
     if M:
         _launch("kl_lsh_keys", values_t.data_ptr(), values_t.stride(0), S, M,
-                planes.data_ptr(), sizes.data_ptr(), h, free_bits(h),
-                keys.data_ptr(), proj.data_ptr(), minmax.data_ptr())
+                planes.data_ptr(), sizes.data_ptr(), h, plan["planes"],
+                plan["smem"], free_bits(h), keys.data_ptr(), proj.data_ptr(),
+                minmax.data_ptr())
         launches["lsh_keys"] += 1
     return keys, proj
 
@@ -372,11 +393,13 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
              slots: torch.Tensor, parent: torch.Tensor):
     """Group rows by the root of their merge forest.
 
-    State columns (values f32 [S, fc], sizes, slots int32 [fc]) and the
-    parent forest (int32 [cap0]) → (flat int32 [cap0]: member rows, clusters
-    by smallest member, members ascending, rows of dead roots last;
-    lens, sizes int32 [fc] and centroids f32 [S, fc] in the same cluster
-    order; entries past the alive count are 0)."""
+    State columns (values f32 [S, fc], sizes, slots int32 [fc], the slots
+    distinct) and the parent forest (int32 [cap0]) → (flat int32 [cap0]:
+    member rows, clusters by smallest member, members ascending, rows of
+    dead roots last; lens, sizes int32 [fc] and centroids f32 [S, fc] in
+    the same cluster order; entries past the alive count are 0). On the
+    card: csrc/finalize.cu's steps, the two stable sorts by torch.sort and
+    the columns moved by :func:`permute_state`."""
     if not _on_cuda(values_t, sizes, slots, parent):
         return finalize_plain(values_t, sizes, slots, parent)
     _check(values_t, torch.float32, "values_t", 2)
@@ -388,28 +411,30 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
     cap0 = parent.shape[0]
     dev = parent.device
     i32 = dict(dtype=torch.int32, device=dev)
-    alive_of_slot = torch.zeros(cap0, **i32)
-    root_key = torch.empty(cap0, **i32)
-    first = torch.full((cap0,), cap0, **i32)
-    count = torch.zeros(cap0, **i32)
-    member_key = torch.empty(cap0, **i32)
-    cluster_key = torch.empty(fc, **i32)
-    lens = torch.empty(fc, **i32)
-    csizes = torch.empty(fc, **i32)
-    cents = torch.empty((S, fc), dtype=torch.float32, device=dev)
     if cap0 == 0:
-        return torch.empty(0, **i32), lens, csizes, cents
-    _launch("kl_finalize_keys", cap0, fc, sizes.data_ptr(), slots.data_ptr(),
-            parent.data_ptr(), alive_of_slot.data_ptr(), root_key.data_ptr(),
-            first.data_ptr(), count.data_ptr(), member_key.data_ptr(),
-            cluster_key.data_ptr())
-    flat = torch.sort(member_key, stable=True).indices.to(torch.int32)
-    order = torch.sort(cluster_key, stable=True).indices
-    if fc:
-        _launch("kl_finalize_gather", fc, S, order.data_ptr(),
-                sizes.data_ptr(), slots.data_ptr(), count.data_ptr(),
-                values_t.data_ptr(), lens.data_ptr(), csizes.data_ptr(),
-                cents.data_ptr())
+        return (torch.empty(0, **i32), torch.zeros(fc, **i32),
+                torch.zeros(fc, **i32),
+                torch.zeros((S, fc), dtype=torch.float32, device=dev))
+    link = torch.empty(cap0, **i32)
+    key = torch.empty(cap0, **i32)
+    _launch("kl_finalize_roots", cap0, fc, sizes.data_ptr(), slots.data_ptr(),
+            parent.data_ptr(), link.data_ptr(), key.data_ptr())
+    skey, rows = torch.sort(key, stable=True)
+    end = key   # free after the sort: each alive segment's end, by root
+    ckey, clen, cstart = (torch.empty(fc, **i32) for _ in range(3))
+    _launch("kl_finalize_segments", cap0, fc, skey.data_ptr(),
+            rows.data_ptr(), sizes.data_ptr(), slots.data_ptr(),
+            link.data_ptr(), end.data_ptr(), ckey.data_ptr(), clen.data_ptr(),
+            cstart.data_ptr())
+    order = torch.sort(ckey, stable=True).indices
+    cents, csizes, lens = permute_state(values_t, sizes, clen, order)
+    sums = torch.empty(max(-(-fc // 1024), 1), **i32)
+    flat = torch.empty(cap0, **i32)
+    _launch("kl_finalize_place", cap0, fc, S, order.data_ptr(),
+            slots.data_ptr(), cstart.data_ptr(), lens.data_ptr(),
+            csizes.data_ptr(), skey.data_ptr(), rows.data_ptr(),
+            sums.data_ptr(), link.data_ptr(), cents.data_ptr(),
+            flat.data_ptr())
     launches["finalize"] += 1
     return flat, lens, csizes, cents
 

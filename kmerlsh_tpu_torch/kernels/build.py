@@ -33,13 +33,15 @@ _F = ctypes.c_float
 # c_void_p: a plain int would be cut to 32 bits)
 SIGNATURES = {
     "kl_transform": (_P, _P, _I, _L, _F, _P, _P, _P),
-    "kl_lsh_keys": (_P, _L, _I, _L, _P, _P, _I, _I, _P, _P, _P, _P),
+    "kl_lsh_keys": (_P, _L, _I, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "kl_permute_state": (_P, _L, _I, _L, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                          _P, _P),
     "kl_chain_collapse": (_P, _I, _L, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
                           _P, _P, _P, _P, _P, _P),
-    "kl_finalize_keys": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "kl_finalize_gather": (_L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "kl_finalize_roots": (_L, _L, _P, _P, _P, _P, _P, _P),
+    "kl_finalize_segments": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "kl_finalize_place": (_L, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P),
     "kl_wrs_verdicts": (_P, _L, _L, _I, _I, _P, _F, _F, _I, _P, _P, _P, _P),
     "kl_score_reads": (_P, _P, _P, _P, _I, _P, _L, _I, _F, _P, _P),
     "kl_exchange_window": (_P, _L, _I, _L, _P, _P, _I, _I, _P, _P, _P, _P,

@@ -9,7 +9,8 @@ sample lists (``groupA.txt`` / ``groupB.txt``).
 seed, with their edge cases planted, for the kernel tests and chip_smoke.py.
 ``window_keys``, ``marker_keys``, ``write_hex`` and ``write_source_fastqs``
 build mode-E inputs from source sequences, so that chip_smoke.py needs no
-codec of its own.
+codec of its own. ``exchange_inputs`` and ``finalize_case`` make the inputs
+of the exchange fold and of finalize.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import numpy as np
 from kmerlsh_tpu_torch.kmer import codec
 
 __all__ = ["generate", "wrs_rows", "read_part", "window_keys", "marker_keys",
-           "write_hex", "write_source_fastqs"]
+           "write_hex", "write_source_fastqs", "exchange_inputs",
+           "finalize_case", "forest_depth"]
 
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -248,6 +250,71 @@ def exchange_inputs(values_t, sizes, slots, merged_into, world: int,
     pos, w_slots = wins[rank][0], wins[rank][3]
     return (m_vals, m_sizes, m_mi, m_scs, w_slots, pos, *local, parent,
             rank * c)
+
+
+FOREST_ROUNDS = 21   # the iterations of a mode-C session at -I 20
+
+
+def finalize_case(cap0: int, kind: str, s: int = 5, seed: int = 0):
+    """A finalize input: numpy (values_t f32 [s, fc], sizes and slots int32
+    [fc], parent int32 [cap0]).
+
+    ``merges``: FOREST_ROUNDS rounds in each of which a tenth of the roots
+    merge into other roots, as a session's iterations fold chains, the
+    tallest tree among them (so 21 deep); the state holds the survivors in
+    random order, one in 20 of them with size 0 (a dead root) and one in 10
+    left out (its rows' root is then dead too, as when fc is below a
+    session's alive count), and last one column whose slot is a merged row
+    (no root: it gets no cluster).
+    ``chain``: row r points at row r - 1, one chain cap0 - 1 deep, its root
+    the one state column. ``empty``: the same chain and no state column."""
+    r = np.random.default_rng(seed)
+    parent = np.arange(cap0)
+    if kind == "merges":
+        roots, height = parent.copy(), np.zeros(cap0, np.int64)
+        for _ in range(FOREST_ROUNDS):
+            die = r.random(len(roots)) < 0.1
+            die[0] = False
+            if len(roots) > 1:   # the tallest other tree grows
+                die[1 + np.argmax(height[roots[1:]])] = True
+            keep = roots[~die]
+            into = r.choice(keep, size=int(die.sum()))
+            parent[roots[die]] = into
+            np.maximum.at(height, into, height[roots[die]] + 1)
+            roots = keep
+        merged = np.flatnonzero(parent != np.arange(cap0))
+        slots = np.r_[r.permutation(roots)[:len(roots) * 9 // 10],
+                      r.choice(merged, 1)]
+    elif kind in ("chain", "empty"):
+        parent[1:] = parent[:-1]
+        slots = parent[:1] if kind == "chain" else parent[:0]
+    else:
+        raise ValueError(f"no finalize case {kind!r}")
+    fc = len(slots)
+    sizes = r.integers(1, 50, fc).astype(np.int32)
+    if kind == "merges":
+        sizes[:-1][r.random(fc - 1) < 0.05] = 0
+    values = r.normal(size=(s, fc)).astype(np.float32)
+    return values, sizes, slots.astype(np.int32), parent.astype(np.int32)
+
+
+def forest_depth(parent) -> tuple[int, float]:
+    """(largest, mean) number of parent links from a row to its root, for
+    a parent forest given as a 1-d integer tensor."""
+    import torch
+
+    up = parent.long()
+    x = torch.arange(len(up), device=up.device)
+    depth = torch.zeros_like(x)
+    while len(x):
+        nxt = up[x]
+        moved = nxt != x
+        if not bool(moved.any()):
+            break
+        depth += moved.long()
+        x = nxt
+    return (int(depth.max()) if len(x) else 0,
+            float(depth.double().mean()) if len(x) else 0.0)
 
 
 if __name__ == "__main__":

@@ -58,6 +58,37 @@ def test_transform_and_keys_exact(dev, n):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
+# h at every boundary of the sign-plane instantiations (kernels.LSH_PLANES)
+H_EDGES = [1, 4, 5, 8, 9, 12, 13, 16, 17, 20, 21, 24, 25, 28, 29, 30]
+
+
+def test_lsh_keys_exact_at_every_plane_count(dev):
+    # a column slice of a wider matrix, M a multiple of no block's columns
+    n, m = 1 << 16, 40003
+    _, _, values, sizes = _state(n, dev)
+    planes = rng.draw_hyperplanes(0, 0, S).to(dev)
+    for h in H_EDGES:
+        k = kernels.lsh_keys(values[:, :m], sizes[:m], planes, h)
+        p = kernels.lsh_keys_plain(values[:, :m].contiguous(), sizes[:m],
+                                   planes, h)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), h
+
+
+@pytest.mark.parametrize("s", [1, 3, 600, 1565])
+def test_lsh_keys_exact_at_many_samples(dev, s):
+    """Few samples, and as many as the engine takes (the planes and the
+    ring then fill most of a block's shared memory)."""
+    r = np.random.default_rng(s)
+    wide = torch.from_numpy(r.normal(size=(s, 5007)).astype(np.float32)).to(dev)
+    sizes = torch.from_numpy(r.integers(0, 3, 5000, dtype=np.int32)).to(dev)
+    planes = rng.draw_hyperplanes(1, 0, s).to(dev)
+    for h in (1, 9, 17, 24, 30):
+        k = kernels.lsh_keys(wide[:, :5000], sizes, planes, h)
+        p = kernels.lsh_keys_plain(wide[:, :5000].contiguous(), sizes, planes,
+                                   h)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), h
+
+
 @pytest.mark.parametrize("s", [1, 3, 20, 100])
 def test_permute_exact(dev, s):
     # a column slice of a wider matrix, M a multiple of no gather run
@@ -164,6 +195,43 @@ def test_finalize_exact(dev):
     p = kernels.finalize_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
     assert int(k[1].sum()) == n - n // 50
+
+
+@pytest.mark.parametrize("case,cap0,seed", [
+    ("merges", 1 << 16, 0), ("merges", 70001, 1), ("chain", 4096, 0),
+    ("empty", 1000, 0)])
+def test_finalize_exact_on_forests(dev, case, cap0, seed):
+    """A forest 21 deep with dead roots, roots left out of the state (fc
+    below the alive count) and an alive column whose slot is no root; a
+    chain 4095 deep; fc = 0."""
+    arrays = testdata.finalize_case(cap0, case, s=S, seed=seed)
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    depth, _ = testdata.forest_depth(args[3])
+    assert depth == (21 if case == "merges" else cap0 - 1)
+    k = kernels.finalize(*args)
+    p = kernels.finalize_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def test_finalize_exact_after_a_session(dev):
+    """A session's forest: 21 iterations, thresholds annealed as mode C's
+    -I 20 -N 0.8."""
+    n = 1 << 16
+    _, _, vt, sz = _state(n, dev, n_prof=64)
+    sl = torch.arange(n, dtype=torch.int32, device=dev)
+    parent = sl.clone()
+    for it in range(testdata.FOREST_ROUNDS):
+        na = int((sz > 0).sum())
+        vt, sz, sl = engine._one_iteration(
+            vt, sz, sl, parent, rng.draw_hyperplanes(4, it, S).to(dev),
+            0.95 - 0.0075 * it, engine._active_h_of(na))
+    vt, sz, sl = engine.compact_sort(vt, sz, sl)
+    na = int((sz > 0).sum())
+    assert testdata.forest_depth(parent)[0] > 1
+    args = (vt[:, :na].contiguous(), sz[:na], sl[:na], parent)
+    k = kernels.finalize(*args)
+    p = kernels.finalize_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
 def test_wrappers_refuse_bad_input(dev):

@@ -1,10 +1,13 @@
-"""The launch arithmetic of the permute and chain-collapse kernels
-(``kernels.permute_plan``, ``kernels.chain_plan``): what the CUDA sources
-rely on, checked without the card."""
+"""What the CUDA sources rely on, checked without the card: the launch
+arithmetic of the LSH-key, permute and chain-collapse kernels
+(``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``) and the grouping
+identity of finalize's steps."""
 
+import numpy as np
 import pytest
+import torch
 
-from kmerlsh_tpu_torch import kernels
+from kmerlsh_tpu_torch import kernels, testdata
 
 STRIDE = 1 << kernels.MAX_CHAIN_LOG
 SIZES = [1, 31, 512, 70001, 1 << 20, (1 << 21) - 12345, 1 << 24]
@@ -55,3 +58,128 @@ def test_chain_plan_fills_the_card_at_every_capacity():
     # 132 SMs: at 2^20 x 20 and above, several blocks per SM
     for M in (1 << 20, 2_000_000, 1 << 24):
         assert kernels.chain_plan(20, M)["blocks"] >= 4 * 132
+
+
+# --- K1b lsh_keys ---------------------------------------------------------
+
+@pytest.mark.parametrize("h", range(1, 31))
+def test_lsh_plan_computes_the_least_instantiation_at_or_above_h(h):
+    T = kernels.lsh_plan(20, h)["planes"]
+    assert T in kernels.LSH_PLANES and T >= h
+    assert all(t < h for t in kernels.LSH_PLANES if t < T)
+    assert T - h < 4          # at most three sign planes computed in vain
+
+
+@pytest.mark.parametrize("S", [1, 20, 528, 529, 600, 1565, 1688])
+def test_lsh_plan_stages_the_planes_in_use_and_the_ring(S):
+    for h in (1, 8, 9, 24, 25, 30):
+        plan = kernels.lsh_plan(S, h)
+        quads = -(-(plan["planes"] + 1) // 4)   # whole float4s a plane row
+        ring = 4 * kernels.LSH_RING * plan["cols"]   # value rows in flight
+        assert plan["smem"] == 16 * S * quads + ring <= kernels.SMEM_LIMIT
+        assert plan["cols"] == 4 * plan["threads"]
+
+
+def test_lsh_plan_refuses_what_shared_memory_cannot_hold():
+    ring = 4 * kernels.LSH_RING * 512
+    assert kernels.lsh_plan(20, 24)["smem"] == 20 * 16 * 7 + ring
+    with pytest.raises(ValueError):
+        kernels.lsh_plan(1689, 30)   # 32 floats a row and the ring: past 227 KB
+    assert kernels.lsh_plan(1689, 24)["smem"] <= kernels.SMEM_LIMIT
+    # every S the engine's other kernels take (chain_plan: up to 1,565)
+    assert kernels.lsh_plan(1565, 30)["smem"] <= kernels.SMEM_LIMIT
+    for h in (0, 31):
+        with pytest.raises(ValueError):
+            kernels.lsh_plan(20, h)
+
+
+# --- K5 finalize ------------------------------------------------------------
+
+def _finalize_steps(values_t, sizes, slots, parent):
+    """csrc/finalize.cu's steps in numpy, one thread after another: the
+    identity the kernel rests on. Link words as the kernel keeps them (the
+    flag is bit 31 of a 64-bit word here)."""
+    cap0, fc = len(parent), len(sizes)
+    flag = 1 << 31
+    link = parent.astype(np.int64)
+    link[slots[sizes > 0]] |= flag                        # kl_fin_mark
+    key = np.empty(cap0, np.int64)
+    for r in range(cap0):                                 # kl_fin_roots
+        x, p = r, link[r]
+        while (p & ~flag) != x:
+            x = p & ~flag
+            p = link[x]
+        key[r] = x if p & flag else cap0
+    rows = np.argsort(key, kind="stable")                 # the rows' sort
+    skey = key[rows]
+    pos = np.arange(cap0)
+    alive = skey != cap0                                  # kl_fin_heads
+    first = alive & np.r_[True, skey[1:] != skey[:-1]]
+    last = alive & np.r_[skey[1:] != skey[:-1], True]
+    link[skey[first]] = -(pos[first] + 1)
+    end = key.copy()
+    end[skey[last]] = pos[last] + 1
+    ckey = np.full(fc, cap0)                              # kl_fin_clusters
+    clen = np.zeros(fc, np.int64)
+    cstart = np.zeros(fc, np.int64)
+    v = link[slots]
+    seg = (sizes > 0) & (v < 0)
+    cstart[seg] = -v[seg] - 1
+    clen[seg] = end[slots[seg]] - cstart[seg]
+    ckey[seg] = rows[cstart[seg]]
+    order = np.argsort(ckey, kind="stable")               # the clusters' sort
+    cents, csizes, lens = values_t[:, order], sizes[order], clen[order]
+    off = np.cumsum(lens) - lens                          # kl_fin_place
+    k = lens > 0
+    link[slots[order[k]]] = off[k] - cstart[order[k]]
+    cents = np.where(csizes > 0, cents, 0.0).astype(np.float32)
+    d = np.where(alive, link[np.minimum(skey, cap0 - 1)], 0)
+    flat = np.empty(cap0, np.int64)                       # kl_fin_scatter
+    flat[pos + d] = rows
+    return flat, lens, csizes, cents
+
+
+def _jax_finalize_case():
+    from test_torch_engine import _finalize_case
+
+    return _finalize_case()[:4]
+
+
+FINALIZE_CASES = {
+    **{f"merges{seed}": (lambda seed=seed: testdata.finalize_case(
+        4096, "merges", seed=seed)) for seed in range(3)},
+    "chain": lambda: testdata.finalize_case(1500, "chain"),
+    "empty": lambda: testdata.finalize_case(300, "empty"),
+    "jax": _jax_finalize_case,
+}
+
+
+@pytest.mark.parametrize("case", sorted(FINALIZE_CASES))
+def test_finalize_steps_give_the_plain_grouping(case):
+    values_t, sizes, slots, parent = FINALIZE_CASES[case]()
+    want = kernels.finalize_plain(*(torch.from_numpy(a) for a in
+                                    (values_t, sizes, slots, parent)))
+    got = _finalize_steps(values_t, sizes, slots, parent)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b.numpy())
+    assert sorted(got[0]) == list(range(len(parent)))   # flat: a permutation
+    if case.startswith("merges") or case == "jax":   # rows of dead roots
+        assert 0 < int(got[1].sum()) < len(parent)
+
+
+def test_entry_points_take_what_ctypes_passes():
+    """Every KL_EXPORT function of csrc/ has the argument types that
+    build.SIGNATURES gives ctypes (a pointer for each pointer)."""
+    import re
+
+    from kmerlsh_tpu_torch.kernels import build
+
+    scalar = {"long long": build._L, "int": build._I, "float": build._F}
+    found = {}
+    for src in build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r"KL_EXPORT int (\w+)\(([^)]*)\)",
+                                       src.read_text()):
+            found[name] = tuple(
+                build._P if "*" in p else scalar[" ".join(p.split()[:-1])]
+                for p in params.split(","))
+    assert found == build.SIGNATURES

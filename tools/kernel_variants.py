@@ -1,0 +1,458 @@
+"""Time text variants of the LSH-key and finalize kernels against the
+sources as committed, on one CUDA card, in one process.
+
+    python3 tools/kernel_variants.py
+
+Each variant is a list of substitutions in ``kmerlsh_tpu_torch/csrc``; the
+sources of every variant are compiled with the flags of
+``kmerlsh_tpu_torch.kernels.build`` into a library of their own under
+``build/kernel_variants/``, and the kernel wrappers run against each
+library in turn (two rounds, the variants alternating). The inputs are
+chip_smoke.py phase 3's at 2^21 and 2^24 x 20: lsh_keys on the first
+iteration's state at the data's h, finalize on the state and forest after
+six iterations. Prints each call's time (chip_smoke.cuda_ms) and whether
+its outputs equal the plain version's. The variants:
+
+  committed    the sources as they are;
+  constant     lsh_keys reads its plane operands from the 64 KB constant
+               bank (the planes copied there on the stream, read at a
+               warp-uniform index) instead of shared memory;
+  fma          lsh_keys sums each term with one fused multiply-add (not
+               the plain version's rounding: a bound on what the float
+               instructions cost);
+  no-float     lsh_keys streams its values and writes its outputs but sums
+               nothing (its memory and bookkeeping alone);
+  no-memory    lsh_keys sums as committed but takes its values from
+               registers (its float instructions alone);
+  fma-no-memory  both of the two above;
+  unroll2      lsh_keys' loop over the samples unrolled by two;
+  bulk         lsh_keys fetches each value row of a block with one bulk
+               copy (cp.async.bulk, completing on an mbarrier) issued by
+               one thread, instead of four 4-byte cp.async a thread;
+  persistent   lsh_keys on as many blocks as the card holds at once, each
+               taking tiles blockIdx.x, + gridDim.x, ... with its value
+               rows' copies running on across tiles and its planes staged
+               once;
+  write-back   finalize's root chase writes each root back over the row's
+               and its parent's link, so that later chases stop early.
+
+A variant that does not compile is reported and left out.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402  (exits where there is no card)
+
+torch = cs.torch
+from kmerlsh_tpu_torch import kernels  # noqa: E402
+from kmerlsh_tpu_torch.cluster import engine  # noqa: E402
+from kmerlsh_tpu_torch.kernels import build  # noqa: E402
+from kmerlsh_tpu_torch.ops import rng  # noqa: E402
+
+WORK = build.BUILD_DIR.parent / "kernel_variants"
+SUM = """            acc[c][4 * q + k] =
+                __fadd_rn(acc[c][4 * q + k], __fmul_rn(p[k], x[c]));"""
+FMA = [("lsh_keys.cu", SUM, """            acc[c][4 * q + k] =
+                __fmaf_rn(p[k], x[c], acc[c][4 * q + k]);""")]
+ISSUE = """    kl_issue_row(ring, values, ld, s + KL_PROJ_RING - 1, S, m0, M);
+    asm volatile("cp.async.wait_group %0;\\n" ::"n"(KL_PROJ_RING - 1)
+                 : "memory");   // this thread's row s has arrived
+"""
+READ = """    const float* slot = ring + (s % KL_PROJ_RING) * KL_PROJ_TILE + threadIdx.x;
+    float x[KL_PROJ_COLS];
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c) x[c] = slot[c * KL_PROJ_THREADS];
+"""
+LOOP = "  for (int s = 0; s < S; ++s) {\n    kl_issue_row"
+NO_MEMORY = [("lsh_keys.cu", ISSUE + READ, """    float x[KL_PROJ_COLS];
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c)
+      x[c] = __int_as_float(0x3f800000 + (s << 6) + c + (int)threadIdx.x);
+""")]
+BULK = [
+    ("lsh_keys.cu", """__device__ __forceinline__ void kl_issue_row(""", """\
+__device__ __forceinline__ unsigned kl_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+#define KL_SLOT_BYTES (KL_PROJ_TILE * 4 + 32)   // a row segment, 16-byte ends
+
+// Thread 0: one bulk copy of the 16-byte chunks that hold value row s of the
+// block's columns [c0, c1) into ring slot s % KL_PROJ_RING, completing on
+// that slot's barrier.
+__device__ __forceinline__ void kl_fetch_row(unsigned char* ring,
+                                             unsigned long long* full,
+                                             const float* values, long long ld,
+                                             int s, long long c0,
+                                             long long c1) {
+  const unsigned long long lo =
+      (unsigned long long)(values + s * ld + c0) & ~15ull;
+  const unsigned long long hi =
+      ((unsigned long long)(values + s * ld + c1) + 15ull) & ~15ull;
+  const unsigned bytes = (unsigned)(hi - lo);
+  const int k = s % KL_PROJ_RING;
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
+          kl_smem(full + k)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\\n" ::"r"(kl_smem(ring + k * KL_SLOT_BYTES)),
+      "l"(lo), "r"(bytes), "r"(kl_smem(full + k))
+      : "memory");
+}
+
+__device__ __forceinline__ void kl_wait_row(unsigned long long* bar,
+                                            unsigned parity) {
+  for (long long n = 0;; ++n) {
+    unsigned ok;
+    asm volatile(
+        "{\\n .reg .pred p;\\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\\n selp.u32 %0, 1, 0, p;\\n}\\n"
+        : "=r"(ok)
+        : "r"(kl_smem(bar)), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (n > (1ll << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void kl_issue_row("""),
+    ("lsh_keys.cu", """  float* ring = reinterpret_cast<float*>(sp + S * NQ);
+  const long long m0 = (long long)blockIdx.x * KL_PROJ_TILE + threadIdx.x;
+  for (int r = 0; r < KL_PROJ_RING - 1; ++r)
+    kl_issue_row(ring, values, ld, r, S, m0, M);
+""", """  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(sp + S * NQ);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(full + KL_PROJ_RING);
+  const long long c0 = (long long)blockIdx.x * KL_PROJ_TILE;
+  const long long c1 = min(c0 + KL_PROJ_TILE, M);
+  const long long m0 = c0 + threadIdx.x;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < KL_PROJ_RING; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(
+                       kl_smem(full + k))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    for (int r = 0; r < KL_PROJ_RING - 1 && r < S; ++r)
+      kl_fetch_row(ring, full, values, ld, r, c0, c1);
+  }
+"""),
+    ("lsh_keys.cu", ISSUE + READ, """    if (s > 0) __syncthreads();   // every thread is done with slot s - 1
+    if (threadIdx.x == 0 && s + KL_PROJ_RING - 1 < S)
+      kl_fetch_row(ring, full, values, ld, s + KL_PROJ_RING - 1, c0, c1);
+    const int k8 = s % KL_PROJ_RING;
+    kl_wait_row(full + k8, (s / KL_PROJ_RING) & 1);
+    const int a = (int)(((unsigned long long)(values + s * ld + c0) & 15ull) >> 2);
+    const float* slot =
+        reinterpret_cast<const float*>(ring + k8 * KL_SLOT_BYTES) + a +
+        threadIdx.x;
+    float x[KL_PROJ_COLS];
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c)
+      x[c] = m0 + c * KL_PROJ_THREADS < c1 ? slot[c * KL_PROJ_THREADS] : 0.f;
+"""),
+    ("lsh_keys.cu", """  if (h < 1 || h > T || smem > KL_SMEM_LIMIT ||
+      smem != S * 16 * ((T + 4) / 4) +
+                  KL_PROJ_RING * KL_PROJ_TILE * (int)sizeof(float))""",
+     """  smem = S * 16 * ((T + 4) / 4) + KL_PROJ_RING * (8 + KL_SLOT_BYTES);
+  if (h < 1 || h > T || smem > KL_SMEM_LIMIT)"""),
+]
+def _span(src: str, start: str, end: str) -> str:
+    """The text of csrc/src from start up to end."""
+    text = (build.CSRC / src).read_text()
+    a = text.index(start)
+    return text[a:text.index(end, a)]
+
+
+PERSISTENT = [
+    ("lsh_keys.cu", _span("lsh_keys.cu", "// Start the copy of value row s",
+                          "__global__ void kl_quantize_kernel"), """\
+// Issue the next step of this block's stream of value rows (row is of tile
+// it) for this thread's columns into ring slot issued % KL_PROJ_RING, and
+// commit it as one group (empty past the stream's end).
+__device__ __forceinline__ void kl_issue_step(
+    float* ring, const float* __restrict__ values, long long ld, int S,
+    long long M, long long ntiles, long long& it, int& is, long long& issued) {
+  if (it < ntiles) {
+    const float* row = values + (long long)is * ld;
+    float* slot = ring + (int)(issued % KL_PROJ_RING) * KL_PROJ_TILE +
+                  threadIdx.x;
+    const long long m0 = it * KL_PROJ_TILE + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c) {
+      const long long m = m0 + (long long)c * KL_PROJ_THREADS;
+      if (m < M) kl_cp_async4(slot + c * KL_PROJ_THREADS, row + m);
+    }
+    if (++is == S) {
+      is = 0;
+      it += gridDim.x;
+    }
+  }
+  ++issued;
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
+}
+
+template <int T>
+__global__ void __launch_bounds__(KL_PROJ_THREADS) kl_project(
+    const float* __restrict__ values, long long ld, int S, long long M,
+    const float* __restrict__ planes, const int* __restrict__ sizes, int h,
+    int* __restrict__ keys, float* __restrict__ proj,
+    unsigned* __restrict__ minmax) {
+  constexpr int NP = T + 1, NQ = (NP + 3) / 4;
+  extern __shared__ float4 sp[];
+  float* ring = reinterpret_cast<float*>(sp + S * NQ);
+  const long long ntiles = (M + KL_PROJ_TILE - 1) / KL_PROJ_TILE;
+  long long it = blockIdx.x, issued = 0, used = 0;
+  int is = 0;
+  for (int r = 0; r < KL_PROJ_RING - 1; ++r)
+    kl_issue_step(ring, values, ld, S, M, ntiles, it, is, issued);
+  float* spf = reinterpret_cast<float*>(sp);
+  for (int i = threadIdx.x; i < S * 4 * NQ; i += KL_PROJ_THREADS) {
+    const int s = i / (4 * NQ), j = i - s * 4 * NQ;
+    spf[i] = j < NP ? planes[s * KL_PLANES + (j < T ? j : KL_H_MAX)] : 0.f;
+  }
+  __syncthreads();
+  unsigned lo = 0xFFFFFFFFu, hi = 0xFFFFFFFFu;   // least word, least ~word
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long m0 = tile * KL_PROJ_TILE + threadIdx.x;
+    float acc[KL_PROJ_COLS][NP];
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c)
+#pragma unroll
+      for (int j = 0; j < NP; ++j) acc[c][j] = 0.f;
+    for (int s = 0; s < S; ++s, ++used) {
+      kl_issue_step(ring, values, ld, S, M, ntiles, it, is, issued);
+      asm volatile("cp.async.wait_group %0;\\n" ::"n"(KL_PROJ_RING - 1)
+                   : "memory");
+      const float* slot =
+          ring + (int)(used % KL_PROJ_RING) * KL_PROJ_TILE + threadIdx.x;
+      float x[KL_PROJ_COLS];
+#pragma unroll
+      for (int c = 0; c < KL_PROJ_COLS; ++c) x[c] = slot[c * KL_PROJ_THREADS];
+      const float4* row = sp + s * NQ;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float4 p4 = row[q];
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (4 * q + k < NP) {
+#pragma unroll
+            for (int c = 0; c < KL_PROJ_COLS; ++c)
+              acc[c][4 * q + k] =
+                  __fadd_rn(acc[c][4 * q + k], __fmul_rn(p[k], x[c]));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KL_PROJ_COLS; ++c) {
+      const long long m = m0 + (long long)c * KL_PROJ_THREADS;
+      if (m >= M) continue;
+      int key = 0;
+#pragma unroll
+      for (int j = 0; j < T; ++j)
+        if (j < h && acc[c][j] >= 0.f) key |= 1 << (h - 1 - j);
+      const float p = acc[c][T];
+      const bool alive = sizes[m] > 0;
+      keys[m] = alive ? key : KL_BIG_KEY;
+      proj[m] = p;
+      if (alive) {
+        const unsigned u = kl_ordered(p);
+        lo = min(lo, u);
+        hi = min(hi, ~u);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, off));
+    hi = min(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (lo < __ldcg(minmax)) atomicMin(minmax, lo);
+    if (hi < __ldcg(minmax + 1)) atomicMin(minmax + 1, hi);
+  }
+}
+
+"""),
+    ("lsh_keys.cu", """  kl_project<T><<<kl_blocks(M, KL_PROJ_TILE), KL_PROJ_THREADS, smem, st>>>(""",
+     """  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kl_project<T>, KL_PROJ_THREADS, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long most = (long long)(per_sm > 1 ? per_sm : 1) * sms;
+  const long long tiles = kl_blocks(M, KL_PROJ_TILE);
+  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
+  kl_project<T><<<grid, KL_PROJ_THREADS, smem, st>>>("""),
+]
+
+VARIANTS = {
+    "committed": [],
+    "constant": [
+        ("lsh_keys.cu", "#define KL_SMEM_LIMIT 232448",
+         "#define KL_SMEM_LIMIT 232448\n__constant__ float kl_planes_c[16384];"),
+        ("lsh_keys.cu", """      const float4 p4 = row[q];
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};""", """      float p[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        p[k] = kl_planes_c[s * KL_PLANES +
+                           (4 * q + k < T ? 4 * q + k : KL_H_MAX)];"""),
+        ("lsh_keys.cu", """  if (err != cudaSuccess) return (int)err;
+#define KL_PROJECT_CASE""", """  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(kl_planes_c, planes,
+                                  (size_t)S * KL_PLANES * sizeof(float), 0,
+                                  cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+#define KL_PROJECT_CASE"""),
+    ],
+    "fma": FMA,
+    "no-float": [("lsh_keys.cu", """    const float4* row = sp + s * NQ;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {""", """    acc[0][0] = __fadd_rn(acc[0][0], x[0] + x[1] + x[2] + x[3]);
+    const float4* row = sp + s * NQ;
+#pragma unroll
+    for (int q = 0; q < 0; ++q) {""")],
+    "no-memory": NO_MEMORY,
+    "fma-no-memory": FMA + NO_MEMORY,
+    "unroll2": [("lsh_keys.cu", LOOP, "#pragma unroll 2\n" + LOOP)],
+    "bulk": BULK,
+    "persistent": PERSISTENT,
+    "write-back": [
+        ("finalize.cu", """__global__ void kl_fin_roots(long long cap0, const int* __restrict__ link,""",
+         """__global__ void kl_fin_roots(long long cap0, int* __restrict__ link,"""),
+        ("finalize.cu", """  int x = (int)r;
+  int p = link[x];
+  for (long long step = 0; (p & ~KL_FIN_FLAG) != x && step < cap0; ++step) {
+    x = p & ~KL_FIN_FLAG;
+    p = link[x];
+  }""", """  int x = (int)r, hop = -1;
+  int p = link[x];
+  for (long long step = 0; (p & ~KL_FIN_FLAG) != x && step < cap0; ++step) {
+    x = p & ~KL_FIN_FLAG;
+    if (hop < 0) hop = x;
+    p = link[x];
+  }
+  if (x != (int)r) {
+    link[r] = x;
+    if (hop != x) link[hop] = x;
+  }"""),
+        ("finalize.cu", "      cap0, (const int*)link, (int*)key);",
+         "      cap0, (int*)link, (int*)key);"),
+    ],
+}
+# lsh_keys not bit-exact by design
+INEXACT = ("fma", "no-float", "no-memory", "fma-no-memory")
+
+
+def build_variants() -> dict[str, ctypes.CDLL]:
+    """One library per variant; the sources no variant changes compile
+    once."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    shutil.copy(build.CSRC / "common.cuh", WORK)
+    base = {p.name: p.read_text() for p in build.CSRC.glob("*.cu")}
+    nvcc = build._nvcc()
+    jobs, objs = [], {}
+    for name, subs in VARIANTS.items():
+        texts = {}
+        for src, old, new in subs:
+            text = texts.get(src, base[src])
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old!r} not in {src}")
+            texts[src] = text.replace(old, new)
+        objs[name] = []
+        for src, text in base.items():
+            tag = name if src in texts else "committed"
+            obj = WORK / f"{tag}_{src}.o"
+            objs[name].append(str(obj))
+            if tag == name:
+                path = WORK / f"{tag}_{src}"
+                path.write_text(texts.get(src, text))
+                jobs.append((name, subprocess.Popen(
+                    [nvcc, *build.NVCC_FLAGS, "-c", "-o", str(obj),
+                     str(path)], stderr=subprocess.PIPE, text=True)))
+    failed = set()
+    for name, job in jobs:
+        _, err = job.communicate()
+        if job.returncode:
+            if name == "committed":
+                raise RuntimeError(f"nvcc failed:\n{err[-4000:]}")
+            cs.log(f"variant {name} left out: nvcc failed:\n{err[-2000:]}")
+            failed.add(name)
+    libs = {}
+    for name in VARIANTS:
+        if name in failed:
+            continue
+        lib = WORK / f"lib_{name}.so"
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(lib),
+                        *objs[name]], check=True)
+        libs[name] = ctypes.CDLL(str(lib))
+        for fn, argtypes in build.SIGNATURES.items():
+            getattr(libs[name], fn).argtypes = argtypes
+            getattr(libs[name], fn).restype = ctypes.c_int
+    return libs
+
+
+def inputs(M: int, lib: ctypes.CDLL):
+    S, dev = cs.S, cs.DEV
+    build._lib = lib
+    counts = torch.from_numpy(cs.make_counts(M, seed=1)).to(dev)
+    cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+    vt, sz = kernels.abundance_transform(counts, (cov / M).float())
+    h = engine._active_h_of(int((sz > 0).sum()))
+    keys_in = (vt.clone(), sz.clone(), rng.draw_hyperplanes(0, 0, S).to(dev),
+               h)
+    sl = torch.arange(M, dtype=torch.int32, device=dev)
+    parent = sl.clone()
+    for it in range(6):
+        vt, sz, sl = engine._one_iteration(
+            vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(dev),
+            0.95 - 0.01 * it, engine._active_h_of(int((sz > 0).sum())))
+    vt, sz, sl = engine.compact_sort(vt, sz, sl)
+    na = int((sz > 0).sum())
+    return keys_in, (vt[:, :na].contiguous(), sz[:na], sl[:na], parent)
+
+
+def timed(fn, args, want) -> str:
+    got = fn(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    return f"{cs.cuda_ms(lambda: fn(*args)):.4f} ms (exact: {same})"
+
+
+def main() -> None:
+    libs = build_variants()
+    for M in (cs.LATE, cs.FULL):
+        keys_in, fin_in = inputs(M, libs["committed"])
+        want_keys = kernels.lsh_keys_plain(*keys_in)
+        want_fin = kernels.finalize_plain(*fin_in)
+        for rnd in range(2):
+            for name, lib in libs.items():
+                build._lib = lib
+                parts = []
+                if not any(src == "finalize.cu" for src, _, _ in
+                           VARIANTS[name]):
+                    parts.append(f"lsh_keys (h = {keys_in[3]}) " + timed(
+                        kernels.lsh_keys, keys_in, want_keys))
+                if name == "committed" or name not in INEXACT and not any(
+                        src == "lsh_keys.cu" for src, _, _ in VARIANTS[name]):
+                    parts.append("finalize " + timed(kernels.finalize, fin_in,
+                                                     want_fin))
+                cs.log(f"variant {name} at {M}, round {rnd}: "
+                       + "; ".join(parts))
+    build._lib = None
+
+
+if __name__ == "__main__":
+    main()
