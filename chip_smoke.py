@@ -16,8 +16,12 @@ Phases:
      local-phase result with e = 4096 (the fold after a global phase over
      four ranks' windows), the t-test on 2^20 cluster rows of 10 + 10
      samples, the read scorer on one part of 2^16 reads of 150 bp against
-     2^22 keys (k = 31); then the mode-C kernels again at 2^21 x 20 (the
-     capacity of phase 5's late iterations) and at 2^24 x 20; at each size
+     2^22 keys (k = 31), with the key directory it searches timed on its
+     own (its library call: torch.searchsorted of each prefix's least key
+     in the keys) and torch.searchsorted of the same windows in the same
+     keys as the scorer's library call; then the mode-C kernels again at
+     2^21 x 20 (the capacity of phase 5's late iterations), at 2^22 x 20
+     (phase 5b's batch) and at 2^24 x 20; at each size
      chain_collapse is also timed without the parent fold (as the sharded
      phases call it) beside a copy of the bytes it streams, lsh_keys is
      held exact at h = 1 and 30 too, and the forest finalize takes is
@@ -34,6 +38,14 @@ Phases:
      then one more warm run under torch.profiler: the card's time by kernel
      (the permute's and the chain collapse's kernels, the key sorts, each
      lsh_keys and finalize kernel, the rest) and its idle share;
+  5b. out of core: phase 5's matrix through the CLI at --batch-thresh 2^22
+     (four batch passes, merge rounds, the final anneal), with the mode-C
+     kernels' launch counts, the batch and round counts, the tmp bytes,
+     device and pull seconds and the wall, the result checked as phase 5's
+     and its count beside phase 5's; then the bytes a row of a session
+     measured on the card (hbm.measure_per_row_bytes), which must not lie
+     below the peak of phase 5's cold session over its rows, and
+     rows_budget at 20 and 400 samples;
   6. mode E at full size: a 2^24 x 20 matrix whose rows are the 31-mers of
      random source sequences (one abundance profile per source, a few per
      cent shifted between the groups), 20 FASTQs of 2^16 reads x 150 bp,
@@ -88,6 +100,7 @@ from kmerlsh_tpu_torch.io import clusterio, counts as countsio  # noqa: E402
 from kmerlsh_tpu_torch.kernels import build  # noqa: E402
 from kmerlsh_tpu_torch.ops import lsh, reads, rng  # noqa: E402
 from kmerlsh_tpu_torch.parallel import dist  # noqa: E402
+from kmerlsh_tpu_torch.utils import hbm  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -95,6 +108,7 @@ S = 20
 SMALL = 1 << 20
 LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
 FULL = 1 << 24
+OOC_BATCH = 1 << 22      # phase 5b's --batch-thresh: four batch passes
 RANKS = 4                # phase 7's processes, all on the one card
 WIDE_S = 600             # many samples: lsh_keys' planes fill shared memory
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
@@ -114,6 +128,8 @@ KERNELS = {
                  "kmerlsh_tpu/cluster/engine.py:651"),
     "wrs_verdicts": ("kmerlsh_tpu_torch/csrc/ttest.cu",
                      "kmerlsh_tpu/ops/ttest.py:57"),
+    "key_directory": ("kmerlsh_tpu_torch/csrc/reads.cu",
+                      "kmerlsh_tpu/ops/reads.py:145"),
     "score_reads": ("kmerlsh_tpu_torch/csrc/reads.cu",
                     "kmerlsh_tpu/ops/reads.py:145"),
     "exchange_window": ("kmerlsh_tpu_torch/csrc/exchange.cu",
@@ -123,7 +139,7 @@ KERNELS = {
 }
 MODE_C = ("abundance_transform", "lsh_keys", "permute_state",
           "chain_collapse", "finalize")
-MODE_E = ("wrs_verdicts", "score_reads")
+MODE_E = ("wrs_verdicts", "key_directory", "score_reads")
 EXCHANGE = ("exchange_window", "exchange_fold")
 # Phase 7's bound on the sharded cluster count against one process's, by the
 # tail the reference's decisions chose. The handoff tail replays the end of
@@ -144,27 +160,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def profile_pool(r: np.random.Generator, n_base: int) -> np.ndarray:
-    """f32 [P, S] unit profiles of bench.py make_data: n_base roots and a
-    3-level similarity hierarchy below them (cosine 0.93, 0.89, 0.85
-    between levels)."""
-    cur = r.normal(size=(n_base, S)).astype(np.float32)
-    cur /= np.linalg.norm(cur, axis=1, keepdims=True)
-    nodes = [cur]
-    for lev in range(3):
-        cos = 0.93 - 0.04 * lev
-        sin = np.sqrt(1 - cos * cos)
-        kids = []
-        for sgn in (1.0, -1.0):
-            orth = r.normal(size=cur.shape).astype(np.float32)
-            orth -= (orth * cur).sum(1, keepdims=True) * cur
-            orth /= np.linalg.norm(orth, axis=1, keepdims=True)
-            kids.append(cos * cur + sgn * sin * orth)
-        cur = np.concatenate(kids)
-        nodes.append(cur)
-    return np.concatenate(nodes)
-
-
 def counts_of(profiles: torch.Tensor, rows: torch.Tensor,
               g: torch.Generator) -> np.ndarray:
     """uint16 [S, len(rows)]: log-abundance 4 + profile of each row + 0.01
@@ -180,8 +175,8 @@ def make_counts(n_rows: int, seed: int = 0) -> np.ndarray:
     drawn from the profile pool, log-abundance 4 + profile + 0.01 noise.
     The row draw and the noise run on the card."""
     r = np.random.default_rng(seed)
-    pool = torch.from_numpy(
-        profile_pool(r, max(64, n_rows >> 7)).T.copy()).to(DEV)  # [S, P]
+    pool = testdata.profile_pool(r, max(64, n_rows >> 7), S)
+    pool = torch.from_numpy(pool.T.copy()).to(DEV)              # [S, P]
     g = torch.Generator(device=DEV).manual_seed(seed)
     rows = torch.randint(0, pool.shape[1], (n_rows,), device=DEV, generator=g)
     return counts_of(pool, rows, g)
@@ -531,8 +526,29 @@ def phase_kernels_mode_e() -> dict:
         f"in {time.perf_counter() - t0:.1f} s")
     part = [torch.from_numpy(a).to(DEV) for a in reads.pack_part(seqs, K_E)]
     dkeys = torch.from_numpy(keys.view(np.int64)).to(DEV)
+    directory = kernels.key_directory(dkeys)
+    bits = directory.numel().bit_length() - 1
+    # the library call: torch.searchsorted of each prefix's least key in
+    # the keys in signed order; the last entry, D, needs no search
+    flipped = dkeys ^ kernels._SIGN
+    least = ((torch.arange(1 << bits, dtype=torch.int64, device=DEV)
+              << (64 - bits)) ^ kernels._SIGN)
+
+    def library():
+        return torch.searchsorted(flipped, least, out_int32=True)
+
+    _exact("key_directory against torch.searchsorted",
+           [(directory[:-1], library())])
+    # keys in, the directory out; one search of the keys a directory entry
+    # is the kernel's own choice, not counted
+    res["key_directory"] = dict(
+        max_abs_err=_exact("key_directory", [
+            (directory, kernels.key_directory_plain(dkeys))]),
+        **timings(lambda: kernels.key_directory(dkeys),
+                  lambda: kernels.key_directory_plain(dkeys),
+                  8 * len(keys) + 4 * directory.numel(), library=library))
     args = (*part, dkeys, K_E, 0.5)
-    k = kernels.score_reads(*args)
+    k = kernels.score_reads(*args, directory)
     p = kernels.score_reads_plain(*args)
     _exact("score_reads", [(k, p)])
     mask = k.cpu().numpy()
@@ -543,12 +559,25 @@ def phase_kernels_mode_e() -> dict:
     if mask[tie] or not 0 < mask.sum() < len(mask):
         raise AssertionError(f"score_reads: tie read selected or "
                              f"{int(mask.sum())} of {len(mask)} selected")
+    # the library call: torch.searchsorted of the queries the kernel looks
+    # up (every window of every eligible read) in the same keys
+    codes, ws, nw, lens = part
+    nw = torch.where(lens >= K_E + 10, nw, 0).long()
+    first = torch.repeat_interleave(ws.long() - torch.cumsum(nw, 0) + nw, nw)
+    windows = first + torch.arange(int(nw.sum()), device=DEV)
+    queries = kernels.score_queries_plain(codes, K_E)[windows]
     # codes, per-read windows and lengths, and the keys in; the mask out
     res["score_reads"] = dict(
         max_abs_err=_max_err([(k, p)]),
-        **timings(lambda: kernels.score_reads(*args),
+        **timings(lambda: kernels.score_reads(*args, directory),
                   lambda: kernels.score_reads_plain(*args),
-                  part[0].numel() + 13 * len(seqs) + 8 * len(keys)))
+                  part[0].numel() + 13 * len(seqs) + 8 * len(keys),
+                  library=lambda: torch.searchsorted(flipped, queries)))
+    bucket = torch.diff(directory)
+    log(f"score_reads: {len(queries)} windows; directory of "
+        f"{directory.numel()} entries, {int((bucket > 0).sum())} buckets "
+        f"in use, {float(bucket.float().mean()):.2f} keys a bucket on "
+        f"average, {int(bucket.max())} at most")
     log(f"score_reads: {int(mask.sum())} of {len(mask)} reads selected, "
         f"equal to the plain and the native scorer")
     log_kernels(res, SMALL)
@@ -632,11 +661,14 @@ def phase_fixture(tmp: str) -> None:
 
 
 def check_clustering(tag: str, clust: str, counts: np.ndarray,
-                     v_kmers: list[float]) -> tuple[int, float]:
+                     v_kmers: list[float],
+                     f16_rounds: int = 0) -> tuple[int, float]:
     """A mode-C clustering file of ``counts``: every row id once and in
     range, finite centroids, and the centroids of 1000 sampled clusters
-    equal to their members' mean recomputed on the host. Returns (saved
-    clusters, the largest centroid error)."""
+    equal to their members' mean recomputed on the host. ``f16_rounds``
+    counts the tmp round files (float16) that the centroids passed
+    through, each of which may move a value by half a float16 ulp. Returns
+    (saved clusters, the largest centroid error)."""
     values, ids = clusterio.read_cluster_all(clust, S)
     flat = ids.flat.astype(np.int64)
     if len(np.unique(flat)) != len(flat) or (flat >= counts.shape[1]).any():
@@ -655,7 +687,10 @@ def check_clustering(tag: str, clust: str, counts: np.ndarray,
         # float32, in chain order
         err = np.abs(values[c] - want).max()
         worst = max(worst, float(err))
-        if err > 1e-4 * max(1.0, np.abs(want).max()):
+        # a tmp round stores each value to within half a float16 ulp,
+        # 2^-11 of its magnitude; a weighted mean keeps that bound
+        if err > (1e-4 * max(1.0, np.abs(want).max())
+                  + f16_rounds * 2**-11 * max(1.0, np.abs(rows).max())):
             raise AssertionError(f"{tag}: cluster {c} centroid off by {err}")
     return len(ids), worst
 
@@ -671,6 +706,7 @@ def phase_full(tmp: str) -> dict:
     argv = ["-a", os.path.join(tmp, "l1"), "-b", os.path.join(tmp, "l2"),
             "--only", "-M", "C", "-I", "20", "-N", "0.8", "--seed", "0",
             "--work-dir", tmp, "-F", clust, "-D", os.path.join(tmp, "tmp")]
+    base = torch.cuda.memory_allocated(DEV)
     torch.cuda.reset_peak_memory_stats(DEV)
     forest = {}
     real_finalize = kernels.finalize
@@ -687,6 +723,9 @@ def phase_full(tmp: str) -> dict:
     finally:
         kernels.finalize = real_finalize
     cold = time.perf_counter() - t0
+    # the cold run's own peak: above what was allocated before it (and
+    # before this script's copy of its forest, made at its end)
+    session_peak = torch.cuda.max_memory_allocated(DEV) - base
     launches = {k: kernels.launches[k] for k in MODE_C}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -705,14 +744,72 @@ def phase_full(tmp: str) -> dict:
         f"of 1000 sampled clusters within {worst:.3g} of the host means")
     log(f"full: cold {cold:.3f} s (device {cold_device:.3f} s), warm "
         f"{warm:.3f} s (device {warm_device:.3f} s), peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB; the cold session's own {session_peak} "
+        f"bytes = {session_peak / FULL:.3f} a row, above the {base} held "
+        f"before it")
     log(f"full: programs {engine.LAST_SESSION['programs']}")
     deepest, mean = testdata.forest_depth(forest.pop("parent"))
     log(f"full: the session's forest is {deepest} deep at most, {mean:.3f} "
         f"on average")
     return dict(launches=launches, clusters=n_clusters, saved=saved,
                 cold=cold, warm=warm, counts=counts, v_kmers=v_kmers,
-                argv=argv)
+                argv=argv, session_peak=session_peak)
+
+
+def phase_out_of_core(full: dict, tmp: str) -> None:
+    """Phase 5's matrix out of core through the CLI: --batch-thresh
+    OOC_BATCH gives four batch passes, then merge rounds and the final
+    anneal; the result checked as phase 5's, its count beside phase 5's.
+    Then the bytes a row of a session, measured on the card, held against
+    the peak of phase 5's cold session over its rows, and the batch budget
+    at S and 400 samples."""
+    argv = list(full["argv"])
+    clust = os.path.join(tmp, "ooc_result.txt")
+    argv[argv.index("-F") + 1] = clust
+    argv[argv.index("-D") + 1] = os.path.join(tmp, "ooc_tmp")
+    argv += ["--batch-thresh", str(OOC_BATCH)]
+    torch.cuda.reset_peak_memory_stats(DEV)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.launches[k] for k in MODE_C}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"out of core never launched {missing}")
+    st = pipeline.LAST_STAGES
+    rounds = st.metrics.get("tmp_rounds", [])
+    if "C_init_clustering" not in st.times or len(rounds) < 2:
+        raise AssertionError(f"out of core: no merge round ({rounds})")
+    saved, worst = check_clustering("out of core", clust, full["counts"],
+                                    full["v_kmers"], f16_rounds=len(rounds))
+    clusters = engine.LAST_SESSION["clusters"]
+    log(f"out of core: {-(-FULL // OOC_BATCH)} batch passes of {OOC_BATCH} "
+        f"rows, then {len(rounds) - 1} merge rounds; clusters after each "
+        f"{rounds}; tmp files written {st.metrics['tmp_bytes']} bytes")
+    log(f"out of core: {clusters} clusters, {saved} saved (one batch, phase "
+        f"5: {full['clusters']}, {full['saved']}); centroids of 1000 "
+        f"sampled clusters within {worst:.3g} of the host means")
+    log(f"out of core: wall {wall:.3f} s, device {st.times['device_seconds']:.3f}"
+        f" s, pull {st.times['pull_seconds']:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(DEV) / 2**30:.2f} GiB; launches "
+        f"{launches}; stages " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.times.items()))
+
+    per_row = hbm.measure_per_row_bytes(S, DEV)
+    floor = full["session_peak"] / FULL
+    if per_row is None or per_row < floor:
+        raise AssertionError(f"bytes a row measured {per_row}, below phase "
+                             f"5's session peak over its rows {floor:.3f}")
+    log(f"memory: {per_row} bytes a row measured at S = {S} (phase 5's "
+        f"session peak over its rows: {floor:.3f}; the static model "
+        f"{14 * S + 64})")
+    mem = hbm.device_memory_bytes(DEV)
+    for s, n in ((S, 1 << 28), (400, 50_000_000)):
+        log(f"memory: rows_budget at S = {s}: {hbm.rows_budget(s, device=DEV)}"
+            f" (static), {hbm.rows_budget(s, kmap_size=n, device=DEV)} for "
+            f"{n} rows (measured: {hbm.cached_per_row_bytes(s, DEV)} bytes a "
+            f"row) of the card's {mem} bytes")
 
 
 def kernel_group(name: str) -> str:
@@ -800,7 +897,7 @@ def phase_mode_e(tmp: str) -> dict:
     keys = testdata.window_keys(src, K_E)[:FULL]
     testdata.write_hex(os.path.join(tmp, countsio.HEX_NAME), keys)
     # one profile per source; 3% shifted up in group A, 3% in group B
-    pool = profile_pool(r, max(64, FULL >> 7))
+    pool = testdata.profile_pool(r, max(64, FULL >> 7), S)
     prof = pool[r.integers(0, len(pool), size=len(src))]
     kind = r.random(len(src))
     prof[kind < 0.03, :S // 2] += 0.6
@@ -1078,12 +1175,14 @@ def main() -> None:
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
     phase_kernels(LATE, exchange=False)        # logged only
+    phase_kernels(OOC_BATCH, exchange=False)   # phase 5b's batch; logged only
     phase_kernels(FULL, exchange=False)        # logged only
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)
     with tempfile.TemporaryDirectory() as t5, \
             tempfile.TemporaryDirectory() as t6:
         full = phase_full(t5)
+        phase_out_of_core(full, t5)
         mode_e = phase_mode_e(t6)
         pipeline._DEVICE_COUNTS_CACHE.clear()
         torch.cuda.empty_cache()

@@ -7,8 +7,10 @@ Modes K, B, C and E run, clustering and testing on ``--device``. With
 command on N processes forms a ``torch.distributed`` group, one rank per
 process: ``--device cuda`` then puts each rank on ``cuda:<local rank %
 device count>`` (NCCL when the host's ranks have a card each, gloo when they
-share one), ``--device cpu`` runs every rank on the CPU (gloo). The
-out-of-core rounds are refused with an error until they are ported.
+share one), ``--device cpu`` runs every rank on the CPU (gloo). A matrix of
+more rows than ``--batch-thresh`` (lowered to what the card's memory holds)
+runs out of core on one process; a multi-process run refuses it with an
+error until the sharded out-of-core rounds are ported.
 """
 
 from __future__ import annotations
@@ -66,9 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--seed", type=int, default=d.seed,
                    help="PRNG seed for hyperplanes (deterministic runs)")
-    p.add_argument("--engine", choices=["tpu"], default=d.engine,
-                   help="clustering engine (the LSH engine; the host "
-                        "greedy oracle is not ported)")
+    p.add_argument("--engine", choices=["tpu", "greedy"], default=d.engine,
+                   help="clustering engine: tpu, the LSH engine on "
+                        "--device; greedy, the reference's greedy "
+                        "clustering on the host (always out of core)")
     p.add_argument("--work-dir", default=d.work_dir,
                    help="directory for kmer_set.hex/kmer_count.bin artifacts")
     p.add_argument("--batch-thresh", type=int, default=d.batch_thresh,

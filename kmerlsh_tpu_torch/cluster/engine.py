@@ -220,6 +220,7 @@ def cluster_counts(
             raise ValueError("pass device= for a numpy count matrix")
         dev = torch.device(device)
         if counts.shape[1] == 0:
+            _reset_session()
             return _empty(counts.shape[0])
         counts, n = upload_counts(counts, dev)
     S, cap0 = counts.shape
@@ -260,8 +261,9 @@ def cluster(
         if device is None:
             raise ValueError("pass device= for numpy values")
         dev = torch.device(device)
-        vt = torch.as_tensor(np.asarray(values, np.float32).T, device=dev)
+        vt = torch.from_numpy(np.array(values, np.float32).T).to(dev)
     s, n = vt.shape
+    _reset_session()
     if n == 0:
         return _empty(s)
     vt = vt.contiguous()
@@ -276,7 +278,6 @@ def cluster(
         thr = (0.95 - sim_step * np.arange(iterations)).astype(np.float32)
     else:
         thr = np.asarray(thresholds, np.float32)
-    _reset_session()
     slots = torch.arange(n, dtype=torch.int32, device=dev)
     parent = torch.arange(n, dtype=torch.int32, device=dev)
     return _drive_session(vt, sz, slots, parent, thr,

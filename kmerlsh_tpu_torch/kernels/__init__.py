@@ -18,6 +18,8 @@ main path went through the kernels.
 | finalize             | csrc/finalize.cu       | engine.py _finalize_grouped               |
 | wrs_verdicts         | csrc/ttest.cu          | ops/ttest.py t_cdf, studentttest2,        |
 |                      |                        | wrs_verdicts                              |
+| key_directory        | csrc/reads.cu          | ops/reads.py _device_score_kernel (the    |
+|                      |                        | search's top levels, once per key set)    |
 | score_reads          | csrc/reads.cu          | ops/reads.py _device_score_kernel         |
 | exchange_window      | csrc/exchange.cu       | parallel/dist.py _window_positions and    |
 |                      |                        | the window gather                         |
@@ -41,8 +43,8 @@ LSH_RING = 8              # value rows a K1b block keeps in flight
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
-    "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "score_reads": 0,
-    "exchange_window": 0, "exchange_fold": 0,
+    "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "key_directory": 0,
+    "score_reads": 0, "exchange_window": 0, "exchange_fold": 0,
 }
 
 
@@ -495,21 +497,27 @@ def _reverse_bases64(v: torch.Tensor) -> torch.Tensor:
     return _bswap64(v)
 
 
-def score_reads_plain(codes, win_start, n_win, lens, keys, k: int,
-                      vote: float):
-    """The sliding k-mers of the flat code array, their canonical keys with
-    the top bit flipped (int64 order is then unsigned order), a lower-bound
-    ``searchsorted`` in the flipped keys and per-read hit counts as
-    cumulative-sum differences."""
-    dev = codes.device
+def score_queries_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """The canonical key of every window of the flat code array, with the
+    top bit flipped (int64 order is then unsigned order)."""
     nw = max(codes.shape[0] - (k - 1), 0)
     c = codes.to(torch.int64)
-    x = torch.zeros(nw, dtype=torch.int64, device=dev)
+    x = torch.zeros(nw, dtype=torch.int64, device=codes.device)
     for j in range(k):
         x |= c[j:j + nw] << (2 * j)
     # revcomp = reverse_bases64(~x) >> (64 − 2k), a logical shift
     rc = (_reverse_bases64(~x) >> (64 - 2 * k)) & ((1 << (2 * k)) - 1)
-    q = torch.minimum(_bswap64(x) ^ _SIGN, _bswap64(rc) ^ _SIGN)
+    return torch.minimum(_bswap64(x) ^ _SIGN, _bswap64(rc) ^ _SIGN)
+
+
+def score_reads_plain(codes, win_start, n_win, lens, keys, k: int,
+                      vote: float):
+    """The windows' canonical keys (``score_queries_plain``), a lower-bound
+    ``searchsorted`` in the keys with the top bit flipped and per-read hit
+    counts as cumulative-sum differences."""
+    dev = codes.device
+    q = score_queries_plain(codes, k)
+    nw = q.shape[0]
     skeys = keys ^ _SIGN
     D = skeys.shape[0]
     if D:
@@ -527,14 +535,53 @@ def score_reads_plain(codes, win_start, n_win, lens, keys, k: int,
     return (lens >= k + 10) & (n_win > 0) & (ratio > v)
 
 
+def key_directory_bits(n_keys: int) -> int:
+    """The prefix bits of the directory of ``n_keys`` keys: about one key
+    a bucket, at least 16 and at most 22 (2^22 entries, 16 MB, beside the
+    32 MB of 2^22 keys, still fit the card's 50 MB L2)."""
+    return min(max((n_keys - 1).bit_length(), 16), 22)
+
+
+def key_directory_plain(keys: torch.Tensor):
+    """The first key whose top ``key_directory_bits(D)`` bits are >= p,
+    for p in [0, 2^bits]: a ``searchsorted`` of the keys' unsigned top
+    bits."""
+    bits = key_directory_bits(keys.shape[0])
+    prefix = (keys >> (64 - bits)) & ((1 << bits) - 1)
+    at = torch.arange((1 << bits) + 1, dtype=torch.int64, device=keys.device)
+    return torch.searchsorted(prefix, at).to(torch.int32)
+
+
+def key_directory(keys: torch.Tensor):
+    """The prefix directory of a differential key set (int64 [D] holding
+    unsigned 64-bit keys in unsigned ascending order) → int32 [2^bits + 1]
+    at ``key_directory_bits(D)`` bits: entry p is the first key whose top
+    bits are >= p, the last entry D. ``score_reads`` searches only between
+    entries p and p + 1."""
+    if not _on_cuda(keys):
+        return key_directory_plain(keys)
+    _check(keys, torch.int64, "keys")
+    bits = key_directory_bits(keys.shape[0])
+    if keys.shape[0] >= 2**31:
+        raise ValueError(f"{keys.shape[0]} keys")
+    out = torch.empty((1 << bits) + 1, dtype=torch.int32, device=keys.device)
+    _launch("kl_key_directory", keys.data_ptr(), keys.shape[0], bits,
+            out.data_ptr())
+    launches["key_directory"] += 1
+    return out
+
+
 def score_reads(codes: torch.Tensor, win_start: torch.Tensor,
                 n_win: torch.Tensor, lens: torch.Tensor, keys: torch.Tensor,
-                k: int, vote: float) -> torch.Tensor:
+                k: int, vote: float,
+                directory: torch.Tensor | None = None) -> torch.Tensor:
     """Score the reads of one part (``ops.reads.pack_part``): codes uint8
     [L], the reads' first windows, window counts and lengths int32 [n],
     and the differential keys as int64 [D] holding unsigned 64-bit keys in
     unsigned ascending order → bool [n], selected reads. Every read's
-    windows must lie inside ``codes``: win_start + n_win + k − 1 ≤ L."""
+    windows must lie inside ``codes``: win_start + n_win + k − 1 ≤ L.
+    ``directory`` is ``key_directory(keys)``, built here when not given
+    (the plain version needs none)."""
     if not _on_cuda(codes, win_start, n_win, lens, keys):
         return score_reads_plain(codes, win_start, n_win, lens, keys, k, vote)
     _check(codes, torch.uint8, "codes")
@@ -547,11 +594,18 @@ def score_reads(codes: torch.Tensor, win_start: torch.Tensor,
         raise ValueError("win_start, n_win and lens differ in length")
     if not 1 <= k <= 31:
         raise ValueError(f"k = {k} outside [1, 31]")
+    if directory is None:
+        directory = key_directory(keys)
+    _on_cuda(codes, directory)
+    _check(directory, torch.int32, "directory")
+    bits = directory.shape[0].bit_length() - 1
+    if directory.shape[0] != (1 << bits) + 1:
+        raise ValueError(f"a directory of {directory.shape[0]} entries")
     out = torch.empty(n, dtype=torch.uint8, device=codes.device)
     if n:
         _launch("kl_score_reads", codes.data_ptr(), win_start.data_ptr(),
                 n_win.data_ptr(), lens.data_ptr(), n, keys.data_ptr(),
-                keys.shape[0], k, float(vote), out.data_ptr())
+                directory.data_ptr(), bits, k, float(vote), out.data_ptr())
         launches["score_reads"] += 1
     return out.view(torch.bool)
 

@@ -16,8 +16,8 @@ Three scorers with that contract:
   * :func:`score_part_device` / :func:`score_part_device_async`: the part
     packed as the reference packs it for its device, uploaded, and scored
     by ``kernels.score_reads`` (the CUDA kernel on a card, its plain
-    PyTorch version on the CPU). The differential keys are uploaded once
-    per group, not once per part.
+    PyTorch version on the CPU). The differential keys are uploaded, and
+    their prefix directory built, once per group, not once per part.
 
 Keys are uint64 on the host. On the device they are int64 tensors holding
 the same bits, sorted in unsigned order.
@@ -113,14 +113,18 @@ def pack_part(seqs: list[bytes], k: int):
             lens.astype(np.int32))
 
 
-# device-resident differential keys: mode E scores many parts against the
-# same key array, so it is uploaded once per group. Keyed on object
-# identity (the pipeline passes one array per group); the value holds the
-# host array, so the id cannot be recycled while the entry lives.
+# device-resident differential keys and their prefix directory: mode E
+# scores many parts against the same key array, so both are made once per
+# group. Keyed on object identity (the pipeline passes one array per group);
+# the value holds the host array, so the id cannot be recycled while the
+# entry lives.
 _DIFF_CACHE: dict = {}
 
 
-def _diff_on_device(diff_keys: np.ndarray, device) -> torch.Tensor:
+def _diff_on_device(diff_keys: np.ndarray, device):
+    """(keys int64 [D], their ``kernels.key_directory``) on ``device``."""
+    from kmerlsh_tpu_torch import kernels
+
     dev = torch.device(device)
     key = (id(diff_keys), len(diff_keys), str(dev))
     hit = _DIFF_CACHE.get(key)
@@ -129,8 +133,8 @@ def _diff_on_device(diff_keys: np.ndarray, device) -> torch.Tensor:
     bits = np.ascontiguousarray(diff_keys, np.uint64).view(np.int64)
     keys = torch.from_numpy(bits).to(dev)
     _DIFF_CACHE.clear()                      # hold at most one set
-    _DIFF_CACHE[key] = (diff_keys, keys)
-    return keys
+    _DIFF_CACHE[key] = (diff_keys, (keys, kernels.key_directory(keys)))
+    return _DIFF_CACHE[key][1]
 
 
 def score_part_device_async(
@@ -147,9 +151,9 @@ def score_part_device_async(
         empty = np.zeros(n, dtype=bool)
         return lambda: empty
     dev = torch.device(device)
-    keys = _diff_on_device(diff_keys, dev)
+    keys, directory = _diff_on_device(diff_keys, dev)
     arrays = [torch.from_numpy(a).to(dev) for a in pack_part(seqs, k)]
-    mask = kernels.score_reads(*arrays, keys, k, kmer_vote)
+    mask = kernels.score_reads(*arrays, keys, k, kmer_vote, directory)
     return lambda: mask.cpu().numpy()
 
 

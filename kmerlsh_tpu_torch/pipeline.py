@@ -7,7 +7,10 @@ artifacts, so the two packages can restart from each other's files.
   K: per-sample KMC database            (external kmc or native counter)
   B: kmer_set.hex + kmer_count.bin + kmer_count.log
   C: <clust_file>{,.clust} from one single-batch session on ``device``, or
-     sharded over the ranks of a multi-process run (parallel/dist.py)
+     sharded over the ranks of a multi-process run (parallel/dist.py); a
+     matrix of more rows than the batch size (``batch_thresh``, lowered to
+     what the card's memory holds) goes out of core through tmp/N.bin{,.clust}
+     batch rounds, as does every run of the greedy engine
   E: the t-test of every cluster on ``device`` (cluster-sharded over the
      ranks of a multi-process run), then
      <output1>_<basename>, <output2>_<basename> extracted FASTQ
@@ -16,12 +19,14 @@ Multi-process runs (parallel/multihost.py): every rank computes the same
 clustering; rank 0 alone writes shared artifacts, behind barriers;
 per-sample work (K, E's extraction) is split round-robin over the ranks.
 
-Not ported yet, and refused before any work starts: the out-of-core batch
-rounds (a matrix of more than ``batch_thresh`` rows).
+Not ported yet, and refused before any work starts: the out-of-core rounds
+of a multi-process run (sharded batch passes and merge rounds), and the
+greedy engine there.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import queue
@@ -30,7 +35,9 @@ import threading
 import numpy as np
 import torch
 
+from kmerlsh_tpu_torch import kernels
 from kmerlsh_tpu_torch.config import HyperParams
+from kmerlsh_tpu_torch.utils import hbm
 from kmerlsh_tpu_torch.utils.timing import Stages
 from kmerlsh_tpu_torch.cluster.groups import Groups, as_groups
 from kmerlsh_tpu_torch.io import (clusterio, counts as countsio,
@@ -110,6 +117,170 @@ def _fused_single_batch(
     return cents, groups
 
 
+# on-disk dtype of the tmp-round centroid files: the JAX package's <f2
+# (kmerlsh_tpu/pipeline.py TMP_VALUES_DTYPE), so that either package reads
+# the other's round files; its ~1e-3 relative error is far below what the
+# 0.8-0.95 cosine thresholds of the merge rounds resolve. The final
+# <clust_file> binary stays f32 (the reference's format).
+TMP_VALUES_DTYPE = "<f2"
+
+# floor of the merge-round window (rows a merge round reads at once); the
+# window is half the batch, since a merge round's session holds f32 values
+# where a batch pass's holds uint16 counts
+MERGE_WINDOW_MIN = 1 << 16
+
+
+def _cluster_fn(params: HyperParams, device):
+    """(values [n, S], sizes, iterations, min_similarity, seed) →
+    (centroids [K, S], sizes [K], members) through the engine ``params``
+    names: the LSH engine on ``device``, or the host greedy oracle."""
+    if params.engine == "greedy":
+        from kmerlsh_tpu_torch.cluster import greedy
+
+        def run(values, sizes, iterations, min_similarity, seed):
+            return greedy.cluster(
+                values, sizes=sizes, min_similarity=min_similarity,
+                iterations=iterations,
+                bucket_size_threshold=params.bucket_size_threshold,
+                seed=seed, verbose=params.verbose)
+    else:
+        from kmerlsh_tpu_torch.cluster import engine
+
+        def run(values, sizes, iterations, min_similarity, seed):
+            return engine.cluster(
+                values, sizes, min_similarity=min_similarity,
+                iterations=iterations, seed=seed, verbose=params.verbose,
+                device=device)
+    return run
+
+
+def _add_session(params: HyperParams, stages: Stages) -> None:
+    """Add the most recent engine session's device and pull seconds and
+    pull bytes into ``stages`` (nothing for the host greedy engine)."""
+    if params.engine == "greedy":
+        return
+    from kmerlsh_tpu_torch.cluster import engine
+
+    for key in ("device_seconds", "pull_seconds"):
+        stages.times[key] = (stages.times.get(key, 0.0)
+                             + engine.LAST_SESSION[key])
+    stages.metrics["pull_bytes"] = (stages.metrics.get("pull_bytes", 0)
+                                    + int(engine.LAST_SESSION["pull_bytes"]))
+
+
+def init_clustering(
+    params: HyperParams, kmap_size: int, v_kmers: list[float], stages: Stages,
+    device="cuda",
+) -> tuple[np.ndarray, Groups]:
+    """Out-of-core batched pre-clustering (app/kmerLSH.cc:278-430) on one
+    process: each ``batch_thresh``-row slice of the count matrix once at
+    threshold 0.95 (the seed + 1 a batch), then the tmp round files merged
+    again in rounds (similarity − 0.001 a round, 5 iterations a window of
+    max(MERGE_WINDOW_MIN, batch / 2) rows) until at most one window is
+    left; each round's files are deleted once the next is written. Returns
+    the survivors of the last round (centroids [K, S], ids).
+
+    Batches run one after another: each batch's pull and tmp save follow
+    its session. The stages get ``tmp_rounds`` (the cluster count after
+    the batch passes and after each merge round) and ``tmp_bytes`` (the
+    bytes of every round file written)."""
+    from kmerlsh_tpu_torch.cluster import engine
+
+    cluster = _cluster_fn(params, device)
+    os.makedirs(params.tmp_dir, exist_ok=True)
+    bin_path = os.path.join(params.work_dir, countsio.BIN_NAME)
+    S = len(v_kmers)
+    v = np.asarray(v_kmers, np.float32)
+    similarity = params.min_similarity
+    batch = params.batch_thresh
+    seed = params.seed
+    write_path = os.path.join(params.tmp_dir, "0.bin")
+    totals: list[int] = []
+    stages.metrics["tmp_rounds"] = totals
+    stages.metrics["tmp_bytes"] = 0
+
+    def save(cents, ids_list, first: bool) -> None:
+        with stages.stage("save_tmp"):
+            clusterio.save_result(ids_list, write_path + ".clust",
+                                  append=not first, ignore_small=0)
+            clusterio.save_binary(cents, ids_list, write_path,
+                                  append=not first, ignore_small=0,
+                                  dtype=TMP_VALUES_DTYPE)
+        totals[-1] += len(ids_list)
+
+    def written() -> None:
+        stages.metrics["tmp_bytes"] += sum(
+            os.path.getsize(write_path + ext) for ext in ("", ".clust"))
+
+    totals.append(0)
+    for offset in range(0, kmap_size, batch):
+        bs = min(batch, kmap_size - offset)
+        with stages.stage("read_batch"):
+            cmat = countsio.read_count_batch(bin_path, S, kmap_size, offset, bs)
+        if params.verbose:
+            print(f"batch @{offset}: {bs} rows")
+        if params.engine == "greedy":
+            with stages.stage("transform"):
+                counts, _ = engine.upload_counts(cmat, device)
+                values_t, keep = kernels.abundance_transform(
+                    counts, torch.from_numpy(v).to(counts.device))
+                keep = keep.cpu().numpy() > 0
+                values = values_t.cpu().numpy().T[keep]
+            ids = (offset + np.flatnonzero(keep)).astype(np.uint64)
+            with stages.stage("cluster_batch"):
+                cents, _, groups = cluster(values, None, 1, similarity, seed)
+            with stages.stage("regroup"):
+                ids_list = Groups.from_list(
+                    [np.sort(ids[g]) for g in groups], dtype=np.uint64)
+        else:
+            # iteration 0 of a one-threshold schedule is the reference's
+            # deep init pass at 0.95 (kmerLSH.cc:323,487)
+            with stages.stage("cluster_batch"):
+                cents, _, groups = engine.cluster_counts(
+                    cmat, v, np.asarray([0.95], np.float32), seed=seed,
+                    verbose=params.verbose, device=device)
+            _add_session(params, stages)
+            # groups are sorted within and the ids monotone: the
+            # translation keeps each group ascending
+            with stages.stage("regroup"):
+                ids_list = groups.map_ids((offset + np.arange(bs)).astype(
+                    np.uint64))
+        save(cents, ids_list, offset == 0)
+        seed += 1
+    written()
+
+    vbatch = max(MERGE_WINDOW_MIN, batch // 2)
+    tmp_no = 0
+    while totals[-1] > vbatch:
+        similarity -= 0.001  # kmerLSH.cc:356
+        read_path = write_path
+        tmp_no += 1
+        write_path = os.path.join(params.tmp_dir, f"{tmp_no}.bin")
+        remaining = totals[-1]
+        totals.append(0)
+        for start in range(0, remaining, vbatch):
+            with stages.stage("read_tmp"):
+                values, ids_list = clusterio.read_cluster(
+                    read_path, S, start, min(vbatch, remaining - start),
+                    dtype=TMP_VALUES_DTYPE)
+            with stages.stage("cluster_merge_round"):
+                cents, _, groups = cluster(values,
+                                           ids_list.sizes.astype(np.int32),
+                                           5, similarity, seed)
+            _add_session(params, stages)
+            seed += 1
+            with stages.stage("regroup"):
+                ids_list = ids_list.regroup(groups)
+            save(cents, ids_list, start == 0)
+        written()
+        os.remove(read_path)
+        os.remove(read_path + ".clust")
+        if params.verbose:
+            print(f"merge round {tmp_no}: {totals[-1]} clusters at "
+                  f"{similarity:.3f}")
+    return clusterio.read_cluster_all(write_path, S, dtype=TMP_VALUES_DTYPE)
+
+
 def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
     """The pipeline (= ``kmerCluster``, app/kmerLSH.cc:432-603), clustering
     and testing clusters on ``device``."""
@@ -153,14 +324,38 @@ def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
             kmap_size, covs = countsio.read_log(
                 os.path.join(params.work_dir, countsio.LOG_NAME))
             v_kmers = [c / kmap_size for c in covs]
-        if kmap_size > params.batch_thresh:
+        ranks = multihost.process_count()
+        # the batch size the card's memory holds (the reference's 1e8
+        # constant assumed host RAM, kmerLSH.cc:285,292-295)
+        eff_batch = min(params.batch_thresh,
+                        hbm.rows_budget(len(v_kmers), ranks,
+                                        kmap_size=kmap_size, device=device))
+        if params.verbose and eff_batch < params.batch_thresh:
+            print(f"batch_thresh {params.batch_thresh} -> {eff_batch} "
+                  f"(device memory budget)")
+        params = dataclasses.replace(params, batch_thresh=eff_batch)
+        single = params.engine == "tpu" and kmap_size <= eff_batch
+        if ranks > 1 and not single:
             raise NotImplementedError(
-                f"{kmap_size} rows exceed batch_thresh={params.batch_thresh}: "
-                "the out-of-core batch rounds are not ported to "
-                "kmerlsh_tpu_torch yet")
-        with stages.stage("C_cluster"):
-            cents, final_ids = _fused_single_batch(
-                params, kmap_size, v_kmers, stages, device)
+                f"{kmap_size} rows over {ranks} ranks (batch {eff_batch}, "
+                f"engine {params.engine}): the sharded out-of-core rounds "
+                "are not ported to kmerlsh_tpu_torch yet")
+        if single:
+            with stages.stage("C_cluster"):
+                cents, final_ids = _fused_single_batch(
+                    params, kmap_size, v_kmers, stages, device)
+        else:
+            with stages.stage("C_init_clustering"):
+                values, ids_list = init_clustering(
+                    params, kmap_size, v_kmers, stages, device)
+            with stages.stage("C_cluster"):
+                cents, _, groups = _cluster_fn(params, device)(
+                    values, ids_list.sizes.astype(np.int32),
+                    params.cluster_iteration, params.min_similarity,
+                    params.seed + 10_000)
+            _add_session(params, stages)
+            with stages.stage("regroup"):
+                final_ids = ids_list.regroup(groups)
         with stages.stage("C_save"):
             if multihost.proc0():
                 clusterio.save_result(final_ids, clust_path + ".clust",

@@ -5,8 +5,11 @@ seed): two-group FASTQs with planted differential markers. ``python -m
 kmerlsh_tpu_torch.testdata <dir>`` writes the FASTQs plus the two-column
 sample lists (``groupA.txt`` / ``groupB.txt``).
 
-``wrs_rows`` and ``read_part`` make the inputs of the mode-E kernels from a
-seed, with their edge cases planted, for the kernel tests and chip_smoke.py.
+``profile_pool`` draws the abundance profiles of bench.py make_data, from
+which chip_smoke.py and tools/out_of_core_rounds.py make count matrices.
+``wrs_rows``, ``read_part`` and ``score_case`` make the inputs of the
+mode-E kernels from a seed, with their edge cases planted, for the kernel
+tests and chip_smoke.py.
 ``window_keys``, ``marker_keys``, ``write_hex`` and ``write_source_fastqs``
 build mode-E inputs from source sequences, so that chip_smoke.py needs no
 codec of its own. ``exchange_inputs`` and ``finalize_case`` make the inputs
@@ -22,9 +25,9 @@ import numpy as np
 
 from kmerlsh_tpu_torch.kmer import codec
 
-__all__ = ["generate", "wrs_rows", "read_part", "window_keys", "marker_keys",
-           "write_hex", "write_source_fastqs", "exchange_inputs",
-           "finalize_case", "forest_depth"]
+__all__ = ["generate", "profile_pool", "wrs_rows", "read_part", "score_case",
+           "window_keys", "marker_keys", "write_hex", "write_source_fastqs",
+           "exchange_inputs", "finalize_case", "forest_depth"]
 
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -159,6 +162,79 @@ def read_part(n_reads: int, n_keys: int, k: int = 31, read_len: int = 150,
     if got != hits:
         raise ValueError(f"tie read has {got} hits, not {hits}")
     return reads, keys, tie
+
+
+def profile_pool(r: np.random.Generator, n_base: int, s: int) -> np.ndarray:
+    """f32 [P, s] unit profiles of bench.py make_data: n_base roots and a
+    3-level similarity hierarchy below them (cosine 0.93, 0.89, 0.85
+    between levels)."""
+    cur = r.normal(size=(n_base, s)).astype(np.float32)
+    cur /= np.linalg.norm(cur, axis=1, keepdims=True)
+    nodes = [cur]
+    for lev in range(3):
+        cos = 0.93 - 0.04 * lev
+        sin = np.sqrt(1 - cos * cos)
+        kids = []
+        for sgn in (1.0, -1.0):
+            orth = r.normal(size=cur.shape).astype(np.float32)
+            orth -= (orth * cur).sum(1, keepdims=True) * cur
+            orth /= np.linalg.norm(orth, axis=1, keepdims=True)
+            kids.append(cos * cur + sgn * sin * orth)
+        cur = np.concatenate(kids)
+        nodes.append(cur)
+    return np.concatenate(nodes)
+
+
+SCORE_CASES = ("empty", "one", "crowded", "edges")
+
+
+def score_case(kind: str, k: int, seed: int = 0):
+    """A part of reads and a sorted uint64 key set that strain the prefix
+    directory of the read scorer (16 top key bits: the directory of fewer
+    than 2^16 keys), for ``kind``:
+    ``empty`` no key; ``one`` a single key of a read's window;
+    ``crowded`` every key in one bucket, the smallest prefix (windows of
+    poly-A runs and random keys of that prefix); ``edges`` keys in the
+    smallest and the largest bucket only (for k >= 24 with windows there:
+    T^12 … A^12 reads). Reads are 0–200 bases, some shorter than k + 10,
+    some with N; the last read is eligible. Returns (reads, keys)."""
+    r = np.random.default_rng(seed)
+    lens = r.integers(0, 201, size=400)
+    lens[-1] = max(int(lens[-1]), k + 10)
+    seqs = [BASES[r.integers(0, 4, size=n)] for n in lens]
+    for i in range(0, 400, 7):        # poly-A runs: windows of prefix 0
+        run = min(len(seqs[i]), k + 20)
+        seqs[i][:run] = ord("A")
+    if k >= 24:                       # windows of the largest prefix
+        for i in range(3, 400, 11):
+            n = max(len(seqs[i]), k + 10)
+            t = BASES[r.integers(0, 4, size=n)]
+            t[:12], t[k - 12:k] = ord("T"), ord("A")
+            seqs[i] = t
+    for i in range(5, 400, 13):
+        if len(seqs[i]):
+            seqs[i][r.integers(0, len(seqs[i]))] = ord("N")
+    reads = [bytes(x) for x in seqs]
+    flat = np.concatenate([codec.seq_to_codes(x)[0] for x in reads if x]
+                          or [np.zeros(0, np.uint8)])
+    wins = np.unique(codec.canonical_key(codec.sliding_kmers(flat, k), k))
+    bits = 16
+    top = np.uint64((1 << bits) - 1)
+    shift = np.uint64(64 - bits)
+    prefix = wins >> shift
+    low = r.integers(0, 2**63, size=2000, dtype=np.uint64) >> np.uint64(bits)
+    if kind == "empty":
+        keys = np.empty(0, np.uint64)
+    elif kind == "one":
+        keys = wins[len(wins) // 2:len(wins) // 2 + 1]
+    elif kind == "crowded":
+        keys = np.union1d(wins[prefix == 0], low)
+    elif kind == "edges":
+        keys = np.union1d(wins[(prefix == 0) | (prefix == top)],
+                          np.concatenate([low[:500], (top << shift) | low]))
+    else:
+        raise ValueError(f"no score case {kind!r}")
+    return reads, keys
 
 
 def window_keys(src: np.ndarray, k: int) -> np.ndarray:

@@ -277,6 +277,31 @@ def test_score_reads_matches_plain_and_native(dev, k):
                           mask)
 
 
+@pytest.mark.parametrize("k", [1, 15, 31])
+@pytest.mark.parametrize("kind", testdata.SCORE_CASES)
+def test_score_reads_directory_edge_cases(dev, kind, k):
+    """The prefix directory and the bucket search on an empty key set, one
+    key, one crowded bucket and the smallest and largest prefixes, reads
+    shorter than k + 10, the last read ending where the codes end: the
+    directory equal to its plain version, the mask to the plain and the
+    native scorer's."""
+    seqs, keys = testdata.score_case(kind, k)
+    codes, ws, nw, lens = reads.pack_part(seqs, k)
+    packed = [torch.from_numpy(a).to(dev)
+              for a in (codes[:ws[-1] + lens[-1]], ws, nw, lens)]
+    dkeys = torch.from_numpy(keys.view(np.int64)).to(dev)
+    directory = kernels.key_directory(dkeys)
+    assert torch.equal(directory, kernels.key_directory_plain(dkeys))
+    for vote in (0.0, 0.5):
+        got = kernels.score_reads(*packed, dkeys, k, vote, directory)
+        assert torch.equal(got, kernels.score_reads_plain(*packed, dkeys, k,
+                                                          vote))
+        native = reads.score_part_native(seqs, keys, k, vote)
+        assert np.array_equal(got.cpu().numpy(), native)
+        if vote == 0.0:
+            assert bool(got.any()) == (kind != "empty")
+
+
 def test_mode_e_wrappers_refuse_bad_input(dev):
     values, sizes = testdata.wrs_rows(100, 10, 10)
     v = torch.from_numpy(values).to(dev)

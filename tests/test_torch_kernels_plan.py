@@ -1,13 +1,16 @@
 """What the CUDA sources rely on, checked without the card: the launch
 arithmetic of the LSH-key, permute and chain-collapse kernels
-(``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``) and the grouping
-identity of finalize's steps."""
+(``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``), the grouping
+identity of finalize's steps, and the read scorer's prefix directory and
+bucket search."""
 
 import numpy as np
 import pytest
 import torch
 
 from kmerlsh_tpu_torch import kernels, testdata
+from kmerlsh_tpu_torch.kmer import codec
+from kmerlsh_tpu_torch.ops import reads
 
 STRIDE = 1 << kernels.MAX_CHAIN_LOG
 SIZES = [1, 31, 512, 70001, 1 << 20, (1 << 21) - 12345, 1 << 24]
@@ -183,3 +186,68 @@ def test_entry_points_take_what_ctypes_passes():
                 build._P if "*" in p else scalar[" ".join(p.split()[:-1])]
                 for p in params.split(","))
     assert found == build.SIGNATURES
+
+
+# --- K7: the prefix directory and the search inside a bucket ---------------
+
+def _directory(keys: np.ndarray, bits: int) -> np.ndarray:
+    """kl_key_directory_kernel: entry p < 2^bits is the lower bound of
+    p << (64 - bits) among the keys, the last entry D."""
+    least = np.arange(1 << bits, dtype=np.uint64) << np.uint64(64 - bits)
+    return np.append(np.searchsorted(keys, least, "left"), len(keys))
+
+
+def _score_steps(codes, win_start, n_win, lens, keys, k, vote, bits):
+    """kl_score_reads_kernel in numpy: each window's canonical key, the two
+    directory entries of its prefix, a lower-bound search between them that
+    keeps whether the probe that last lowered ``hi`` found the key, the
+    hits of each read and the float32 vote."""
+    directory = _directory(keys, bits)
+    sel = np.zeros(len(lens), bool)
+    q_all = codec.canonical_key(codec.sliding_kmers(codes, k), k)
+    for r in np.flatnonzero((n_win > 0) & (lens >= k + 10)):
+        q = q_all[win_start[r]:win_start[r] + n_win[r]]
+        p = (q >> np.uint64(64 - bits)).astype(np.int64)
+        lo, hi = directory[p], directory[p + 1]
+        eq = np.zeros(len(q), bool)
+        while (lo < hi).any():
+            act = np.flatnonzero(lo < hi)
+            mid = (lo[act] + hi[act]) >> 1
+            v = keys[mid]
+            less = v < q[act]
+            lo[act[less]] = mid[less] + 1
+            hi[act[~less]] = mid[~less]
+            eq[act[~less]] = v[~less] == q[act][~less]
+        ratio = np.float32(eq.sum()) / np.float32(lens[r] - k + 1)
+        sel[r] = ratio > np.float32(vote)
+    return sel
+
+
+@pytest.mark.parametrize("n, bits", [(0, 16), (1, 16), (1 << 16, 16),
+                                     ((1 << 16) + 1, 17), (1 << 20, 20),
+                                     (1 << 22, 22), (1 << 30, 22)])
+def test_directory_bits_follow_the_key_count(n, bits):
+    assert kernels.key_directory_bits(n) == bits
+
+
+@pytest.mark.parametrize("k", [1, 15, 31])
+@pytest.mark.parametrize("kind", testdata.SCORE_CASES)
+def test_directory_search_gives_the_plain_scores(kind, k):
+    """The directory's arithmetic on the edge cases of testdata.score_case,
+    the last read ending where the codes end: the same directory as
+    key_directory_plain and the same mask as score_reads_plain."""
+    seqs, keys = testdata.score_case(kind, k)
+    bits = kernels.key_directory_bits(len(keys))
+    codes, ws, nw, lens = reads.pack_part(seqs, k)
+    codes = codes[:ws[-1] + lens[-1]]
+    tkeys = torch.from_numpy(keys.view(np.int64))
+    assert np.array_equal(_directory(keys, bits),
+                          kernels.key_directory_plain(tkeys).numpy())
+    for vote in (0.0, 0.5):
+        want = kernels.score_reads_plain(
+            *(torch.from_numpy(a) for a in (codes, ws, nw, lens)), tkeys, k,
+            vote).numpy()
+        got = _score_steps(codes, ws, nw, lens, keys, k, vote, bits)
+        assert np.array_equal(got, want), vote
+        if vote == 0.0:                 # a hit selects: some read has one
+            assert got.any() == (kind != "empty")

@@ -106,15 +106,6 @@ def test_jax_mode_e_on_port_artifacts_finds_markers(runs):
         assert np.isin(mk[np.isin(mk, keys)], got).mean() > 0.8
 
 
-def test_out_of_core_refused(runs, tmp_path):
-    work, m = runs["torch"]
-    argv = _argv(m, work, "C") + ["--batch-thresh", "100",
-                                  "-F", str(tmp_path / "r.txt")]
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        cli.main(argv)
-    assert not (tmp_path / "r.txt").exists()
-
-
 def test_cli_imports_no_jax():
     code = ("import sys, kmerlsh_tpu_torch.cli, kmerlsh_tpu_torch.kernels, "
             "kmerlsh_tpu_torch.kernels.build, kmerlsh_tpu_torch.testdata, "

@@ -1,7 +1,10 @@
-"""Time lsh_keys and finalize on one CUDA card and split each call's card
-time by kernel.
+"""Time lsh_keys and finalize, or the read scorer, on one CUDA card and
+split each call's card time by kernel; or measure a mode-C session's bytes
+a row.
 
     python3 tools/kernel_split.py [M ...]      (default 2^21 and 2^24)
+    python3 tools/kernel_split.py reads
+    python3 tools/kernel_split.py memory
 
 It runs whichever ``kmerlsh_tpu_torch`` comes first on the path, so that
 two trees can be compared on one card in one session: put a tree's root
@@ -12,6 +15,16 @@ data's h, and for finalize the state and forest after six iterations.
 Prints, for each M: each call's time (chip_smoke.cuda_ms: CUDA events
 around 10 back-to-back calls, median of 5), the card's time of one call by
 kernel (torch.profiler; the key sorts as ``sort``), and the forest's depth.
+``reads`` times score_reads on phase 3's part (2^16 reads of 150 bp, k =
+31, 2^22 keys); in a tree with a key directory, the directory's build on
+its own and the kernel with the directory built beforehand, at 16 to 22
+directory bits (the kernel's masks equal the plain version's at each).
+``memory`` runs the engine's ``cluster_counts`` at 2^16 to 2^24 columns of
+20 samples, on uniform random counts and on counts with the distribution of
+bench.py make_data, with 3 and with 21 iterations, and prints each
+session's peak of allocated memory above what was allocated before it,
+over its columns, and the growth from the session of half its columns,
+beside ``utils/hbm.measure_per_row_bytes``.
 """
 
 from __future__ import annotations
@@ -21,12 +34,21 @@ import sys
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
+
 import chip_smoke as cs  # noqa: E402  (exits where there is no card)
 
 torch = cs.torch
 from kmerlsh_tpu_torch import kernels, testdata  # noqa: E402
 from kmerlsh_tpu_torch.cluster import engine  # noqa: E402
-from kmerlsh_tpu_torch.ops import rng  # noqa: E402
+from kmerlsh_tpu_torch.ops import reads, rng  # noqa: E402
+from kmerlsh_tpu_torch.utils import hbm  # noqa: E402
+
+SCHEDULES = {
+    "I = 3": np.asarray([0.95, 0.9, 0.85], np.float32),
+    "I = 21": np.concatenate([[0.95], 0.95 - 0.0075 * np.arange(20)]).astype(
+        np.float32),
+}
 
 
 def split(fn) -> dict[str, float]:
@@ -84,8 +106,71 @@ def measure(M: int) -> None:
            lambda: kernels.finalize(*args))
 
 
+def measure_reads() -> None:
+    seqs, keys, _ = testdata.read_part(reads.READS_CAP, 1 << 22, k=cs.K_E,
+                                       read_len=cs.READ_LEN, seed=4)
+    part = [torch.from_numpy(a).to(cs.DEV)
+            for a in reads.pack_part(seqs, cs.K_E)]
+    dkeys = torch.from_numpy(keys.view(np.int64)).to(cs.DEV)
+    args = (*part, dkeys, cs.K_E, 0.5)
+    if not hasattr(kernels, "key_directory"):
+        report("score_reads", len(seqs), lambda: kernels.score_reads(*args))
+        return
+    want = kernels.score_reads_plain(*args)
+    chosen = kernels.key_directory_bits
+    for bits in (16, 18, 20, 21, 22):
+        kernels.key_directory_bits = lambda n, bits=bits: bits
+        directory = kernels.key_directory(dkeys)
+        if not torch.equal(kernels.score_reads(*args, directory), want):
+            raise AssertionError(f"score_reads at {bits} bits differs")
+        report(f"key_directory ({bits} bits)", len(keys),
+               lambda: kernels.key_directory(dkeys))
+        report(f"score_reads ({bits} bits)", len(seqs),
+               lambda: kernels.score_reads(*args, directory))
+    kernels.key_directory_bits = chosen
+
+
+def session_peak(counts, v, thr) -> int:
+    torch.cuda.synchronize(cs.DEV)
+    base = torch.cuda.memory_allocated(cs.DEV)
+    torch.cuda.reset_peak_memory_stats(cs.DEV)
+    engine.cluster_counts(counts, v, thr, device=cs.DEV)
+    torch.cuda.synchronize(cs.DEV)
+    return torch.cuda.max_memory_allocated(cs.DEV) - base
+
+
+def measure_memory() -> None:
+    cs.log(f"measure_per_row_bytes({cs.S}): "
+           f"{hbm.measure_per_row_bytes(cs.S, cs.DEV)}")
+    rng_ = np.random.default_rng(0)
+    for data in ("uniform", "make_data"):
+        prev: dict[str, int] = {}
+        for e in range(16, 25):
+            cap = 1 << e
+            if data == "uniform":
+                counts = rng_.integers(1, 100, size=(cs.S, cap)).astype(
+                    np.uint16)
+                v = np.zeros(cs.S, np.float32)
+            else:
+                counts = cs.make_counts(cap, seed=1)
+                v = (np.log(np.maximum(counts, 1).astype(np.float64)).sum(1)
+                     / cap).astype(np.float32)
+            parts = []
+            for name, thr in SCHEDULES.items():
+                peak = session_peak(counts, v, thr)
+                grow = ((peak - prev[name]) / (cap // 2) if name in prev
+                        else float("nan"))
+                prev[name] = peak
+                parts.append(f"{name}: peak {peak} = {peak / cap:.3f} a row, "
+                             f"{grow:.3f} a row more than at {cap // 2}")
+            cs.log(f"{data} at {cap}: " + "; ".join(parts))
+
+
 def main() -> None:
     cs.log(f"kmerlsh_tpu_torch from {os.path.dirname(kernels.__file__)}")
+    if sys.argv[1:] in (["reads"], ["memory"]):
+        {"reads": measure_reads, "memory": measure_memory}[sys.argv[1]]()
+        return
     for M in [int(a) for a in sys.argv[1:]] or [cs.LATE, cs.FULL]:
         measure(M)
 
