@@ -12,22 +12,24 @@ Phases:
      float32 operations over the card's rate, whichever is larger) and,
      where one PyTorch call computes the same function, that call's time
      (for lsh_keys a torch.matmul of the planes in use: the projections
-     alone): the mode-C kernels at 2^20 x 20, the exchange kernels on the 2^20 x 20
-     local-phase result with e = 4096 (the fold after a global phase over
-     four ranks' windows), the t-test on 2^20 cluster rows of 10 + 10
-     samples, the read scorer on one part of 2^16 reads of 150 bp against
-     2^22 keys (k = 31), with the key directory it searches timed on its
-     own (its library call: torch.searchsorted of each prefix's least key
-     in the keys) and torch.searchsorted of the same windows in the same
-     keys as the scorer's library call; then the mode-C kernels again at
-     2^21 x 20 (the capacity of phase 5's late iterations), at 2^22 x 20
-     (phase 5b's batch) and at 2^24 x 20; at each size
-     chain_collapse is also timed without the parent fold (as the sharded
-     phases call it) beside a copy of the bytes it streams, lsh_keys is
-     held exact at h = 1 and 30 too, and the forest finalize takes is
-     measured (depth; a pointer-jumping round by torch indexing); at 2^20
-     also lsh_keys at 600 samples and finalize on the forest of 21
-     iterations;
+     alone): the mode-C kernels at 2^20 x 20, the exchange kernels on the
+     2^20 x 20 local-phase result with e = 4096 (the fold after a global
+     phase over four ranks' windows, rank 1's local merges folded by
+     chain_collapse at its base, which is timed with and without that
+     fold), the t-test on 2^20 cluster rows of 10 + 10 samples, the read
+     scorer on one part of 2^16 reads of 150 bp against 2^22 keys (k =
+     31), with the key directory it searches timed on its own (its library
+     call: torch.searchsorted of each prefix's least key in the keys) and
+     torch.searchsorted of the same windows in the same keys as the
+     scorer's library call; then the mode-C kernels again at 2^21 x 20
+     (the capacity of phase 5's late iterations), at 2^22 x 20 (phase 5b's
+     batch and a phase-7 rank's head capacity: the exchange kernels there
+     too) and at 2^24 x 20; at each size chain_collapse is also timed
+     without the parent fold (as the global phase calls it) beside a copy
+     of the bytes it streams, lsh_keys is held exact at h = 1 and 30 too,
+     and the forest finalize takes is measured (depth; a pointer-jumping
+     round by torch indexing); at 2^20 also lsh_keys at 600 samples and
+     finalize on the forest of 21 iterations;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -284,14 +286,19 @@ def finalize_timed(vt, sz, sl, parent) -> tuple[dict, int]:
                           8 * S * na + 16 * na + 8 * cap0)), na
 
 
-def phase_kernels_exchange(local, merged: int) -> dict:
-    """The exchange kernels on a 2^20 x 20 local-phase result (values,
-    sizes, slots, merged_into): the rotating window of e = 4096 survivors,
-    then the fold of rank 1's window after a global phase over four ranks'
-    windows (testdata.exchange_inputs), each exact against its plain
-    version."""
+def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
+    """The exchange kernels on an M x 20 local-phase result (``local``:
+    values, sizes, slots, merged_into of ``sorted_state``, the sorted state
+    and keys, collapsed at 0.95): the rotating window of e = 4096
+    survivors, then rank 1's fold after a global phase over four ranks'
+    windows (testdata.exchange_inputs), its local merges folded by
+    chain_collapse with its parent shard and base as the sharded iteration
+    does, each exact against its plain version; and chain_collapse at that
+    base with and without the fold, beside the sum of one exchange's K3 and
+    K8b (a parent tree's: tools/kernel_split.py exchange)."""
     res = {}
     values, sizes, slots, mi = local
+    sv, ss, sl, skey = sorted_state
     c, e = values.shape[1], dist.EXCHANGE_CAP
     k = kernels.exchange_window(values, sizes, slots, e, 1)
     p = kernels.exchange_window_plain(values, sizes, slots, e, 1)
@@ -306,34 +313,57 @@ def phase_kernels_exchange(local, merged: int) -> dict:
     if n_valid != e:
         raise AssertionError(f"exchange_window: {n_valid} of {e} entries")
 
-    (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
-     base) = testdata.exchange_inputs(values, sizes, slots, mi, 4, 1, e)
+    (*glob, w_slots, pos, lv, ls, lsl, lmi, parent0,
+     base) = testdata.exchange_inputs(values, sizes, slots, mi, RANKS, 1, e)
     g_merged = int((glob[2] >= 0).sum())
     if g_merged == 0:
         raise AssertionError("exchange_fold: the global phase merged nothing")
-    kv, ks, kp = lv.clone(), ls.clone(), parent.clone()
-    pv, ps, pp = lv.clone(), ls.clone(), parent.clone()
-    kernels.exchange_fold(*glob, w_slots, pos, kv, ks, lsl, lmi, kp, base)
-    kernels.exchange_fold_plain(*glob, w_slots, pos, pv, ps, lsl, lmi, pp,
-                                base)
+    # rank 1's local phase: its merges folded into its parent shard
+    slb = sl + base
+    kp, pp = parent0.clone(), parent0.clone()
+    k = kernels.chain_collapse(sv, ss, slb, skey, 0.95, h, None, kp, base)
+    p = kernels.chain_collapse_plain(sv, ss, slb, skey, 0.95, h, None, pp,
+                                     base)
+    _exact("chain_collapse at a base", [(k[1], p[1]), (k[2], p[2]),
+                                        (k[3], p[3]), (kp, pp)])
+    _exact("chain_collapse at a base against the exchange's local state",
+           [(k[1], ls), (k[2], lsl), (k[3], lmi)])
+    local_folds = int((kp != parent0).sum())
+    folded = kp.clone()
+    kv, ks, pv, ps = lv.clone(), ls.clone(), lv.clone(), ls.clone()
+    kernels.exchange_fold(*glob, w_slots, pos, kv, ks, kp, base)
+    kernels.exchange_fold_plain(*glob, w_slots, pos, pv, ps, pp, base)
     err = _exact("exchange_fold", [(kv, pv), (ks, ps), (kp, pp)])
-    folds = int((kp != parent).sum())
+    folds = int((kp != folded).sum())
     n = glob[0].shape[1]
-    # local slots and merged_into, the gathered slots, the window in; the
-    # window's merged columns read and written, one parent entry per merge
+    # the gathered slots, the window in; the window's merged columns read
+    # and written, one parent entry per global merge of this rank's slots
     # (the fold writes the same values again: timed in place)
     res["exchange_fold"] = dict(
         max_abs_err=err,
         **timings(lambda: kernels.exchange_fold(*glob, w_slots, pos, kv, ks,
-                                                lsl, lmi, kp, base),
+                                                kp, base),
                   lambda: kernels.exchange_fold_plain(*glob, w_slots, pos, pv,
-                                                      ps, lsl, lmi, pp, base),
-                  8 * c + 4 * n + 8 * e + n_valid * (8 * S + 12)
-                  + 4 * folds))
-    log(f"exchange: window of {e} of {int((sizes > 0).sum())} alive "
+                                                      ps, pp, base),
+                  4 * n + 8 * e + n_valid * (8 * S + 12) + 4 * folds))
+    # K3 at the rank's base, the fold timed in place (it writes the same
+    # entries again), and without it; its bytes as phase 3's chain_collapse
+    streamed = 8 * S * c + 28 * c
+    with_fold = cuda_ms(lambda: kernels.chain_collapse(
+        sv, ss, slb, skey, 0.95, h, None, folded, base))
+    bare = cuda_ms(lambda: kernels.chain_collapse(sv, ss, slb, skey, 0.95,
+                                                  h))
+    fold_ms = res["exchange_fold"]["ms"]
+    log(f"exchange at {c}: window of {e} of {int((sizes > 0).sum())} alive "
         f"columns; the global phase over {n} gathered columns merged "
-        f"{g_merged}; the fold set {folds} parent entries ({merged} local "
-        f"merges)")
+        f"{g_merged}; rank 1's chain_collapse folded {local_folds} local "
+        f"merges ({merged} merged), exchange_fold {folds} global ones")
+    log(f"exchange at {c}: chain_collapse with the local fold (base {base}) "
+        f"{with_fold:.4f} ms, bound "
+        f"{bound(streamed + 4 * local_folds)['bound_ms']:.4f}; without "
+        f"{bare:.4f} ms, bound {bound(streamed)['bound_ms']:.4f}; "
+        f"exchange_fold {fold_ms:.4f} ms; K3 + K8b of one exchange "
+        f"{with_fold + fold_ms:.4f} ms")
     return res
 
 
@@ -415,7 +445,7 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
                       parent0.clone()),
                   8 * S * M + 28 * M + 4 * merged, 6 * S * M))
     log(f"chain_collapse: {merged} of {n_alive} columns merged at 0.95")
-    # as the sharded phases call it, without the parent fold; and a copy of
+    # as the global phase calls it, without the parent fold; and a copy of
     # the bytes it streams (values and three int columns in and out)
     bare = cuda_ms(lambda: kernels.chain_collapse(svals, ssizes, sslots, skey,
                                                   0.95, h))
@@ -423,7 +453,8 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
     log(f"chain_collapse at {M}: without the parent fold {bare:.4f} ms; a "
         f"copy of its values and int columns {copy:.4f} ms")
     if exchange:
-        res.update(phase_kernels_exchange(k, merged))
+        res.update(phase_kernels_exchange((svals, ssizes, sslots, skey), k,
+                                          merged, h))
 
     # a session's final state: a few more iterations through the kernels
     vt, sz, sl, parent = k[0], k[1], k[2], pk
@@ -1175,7 +1206,8 @@ def main() -> None:
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
     phase_kernels(LATE, exchange=False)        # logged only
-    phase_kernels(OOC_BATCH, exchange=False)   # phase 5b's batch; logged only
+    phase_kernels(OOC_BATCH)   # phase 5b's batch, a phase-7 rank's head
+                               # capacity; logged only
     phase_kernels(FULL, exchange=False)        # logged only
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)

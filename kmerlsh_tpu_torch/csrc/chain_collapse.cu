@@ -9,8 +9,11 @@
 // collapses onto its LAST position: size = the chain's total, value = the
 // size-weighted mean, slot = the head's slot; the last position's own slot
 // moves to the head position. Every other member dies: merged_into = head
-// slot, and parent[slot] = head slot. Each slot dies once, so writing parent
-// here equals the reference's fold.
+// slot, and parent[slot - base] = head slot. Each slot dies once, so writing
+// parent here equals the reference's fold. base is 0 on one device; a rank
+// of the sharded path passes its parent shard, which holds the slots [base,
+// base + c0_loc), so that the local phase's fold
+// (kmerlsh_tpu/parallel/dist.py:112-113) runs here too.
 //
 // Bound on the H100: device-memory bandwidth (the [S, M] values read once
 // and written once, and a few int32 arrays). The design:
@@ -51,13 +54,60 @@
 //     once before it sets the flag.
 //   * The last member of a chain writes the slot at the head position and
 //     the parent entry, wherever the head lies. These scattered 4-byte
-//     writes are what the kernel spends most beyond a copy of its bytes.
+//     writes are what the kernel spends most beyond a copy of its bytes:
+//     a parent line that the stream of values and int columns evicts from
+//     L2 between two writes costs a read-modify-write of its sector in
+//     device memory. So the values are read and written with an L2
+//     evict-first policy (createpolicy), the int columns read and written
+//     in sorted order streamed (ld/st.global.cs, evict-first too) and the
+//     parent entries written with evict-last: where the parent array fits
+//     the 50 MB L2 beside the stream (a rank's 16 MB shard at 2^22), the
+//     fold then costs little more than the kernel without it
+//     (tools/kernel_variants.py fold).
 
 #include "common.cuh"
 
 #define KL_CHAIN_STRIDE 32768   // chains are cut at multiples of 2^15
 #define KL_CHAIN_MAX_P 512
 #define KL_FULL 0xffffffffu
+
+// L2 eviction policies for a whole access (createpolicy)
+__device__ __forceinline__ unsigned long long kl_evict_first() {
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ unsigned long long kl_evict_last() {
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+// kl_cp_async4 with an L2 policy
+__device__ __forceinline__ void kl_cp_async4_pol(void* dst, const void* src,
+                                                 unsigned long long pol) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "l"(pol)
+               : "memory");
+}
+
+__device__ __forceinline__ void kl_st_pol(float* p, float v,
+                                          unsigned long long pol) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;\n" ::"l"(p),
+               "f"(v), "l"(pol)
+               : "memory");
+}
+
+__device__ __forceinline__ void kl_st_pol(int* p, int v,
+                                          unsigned long long pol) {
+  asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;\n" ::"l"(p),
+               "r"(v), "l"(pol)
+               : "memory");
+}
 
 __device__ __forceinline__ bool kl_alive(int size, int key) {
   return size > 0 && key != KL_BIG_KEY;
@@ -89,7 +139,8 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_P, 4) kl_chain_kernel(
     const int* __restrict__ skey, const int* __restrict__ smi, float thr,
     int free_bits, float* __restrict__ out_v, int* __restrict__ out_size,
     int* __restrict__ out_slot, int* __restrict__ out_mi,
-    int* __restrict__ parent, int* __restrict__ status, int* agg) {
+    int* __restrict__ parent, long long pbase, int* __restrict__ status,
+    int* agg) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int i = threadIdx.x, lane = i & 31, warp = i >> 5, nw = P >> 5;
   const int L = P + 3;
@@ -105,6 +156,9 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_P, 4) kl_chain_kernel(
   float* carry_v = (float*)(whp + nw);               // [S]
   int* misc = (int*)(carry_v + S);                   // id, carry hp/slot/w
 
+  // the values and int columns stream through L2 once; the parent
+  // entries stay
+  const unsigned long long stream = kl_evict_first(), keep = kl_evict_last();
   const long long nsub = gridDim.x;
   if (i == 0) misc[0] = atomicAdd(status + nsub, 1);
   __syncthreads();
@@ -117,15 +171,15 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_P, 4) kl_chain_kernel(
   for (int s = 0; s < S; ++s) {
     const float* row = sv + (long long)s * M + base;
     float* trow = tile + (long long)s * L + 1;
-    if (i < n) kl_cp_async4(trow + i, row + i);
+    if (i < n) kl_cp_async4_pol(trow + i, row + i, stream);
     else trow[i] = 0.f;   // past M: the scan multiplies it by a size of 0
-    if (i == 0 && has_left) kl_cp_async4(trow - 1, row - 1);
-    if (i == P - 1 && has_right) kl_cp_async4(trow + P, row + P);
+    if (i == 0 && has_left) kl_cp_async4_pol(trow - 1, row - 1, stream);
+    if (i == P - 1 && has_right) kl_cp_async4_pol(trow + P, row + P, stream);
   }
   if (i < n) {
-    csz[i] = ssize[base + i];
-    ckey[i] = skey[base + i];
-    cslot[i] = sslot[base + i];
+    csz[i] = __ldcs(ssize + base + i);
+    ckey[i] = __ldcs(skey + base + i);
+    cslot[i] = __ldcs(sslot + base + i);
   } else {
     csz[i] = 0;
     ckey[i] = KL_BIG_KEY;
@@ -273,22 +327,24 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_P, 4) kl_chain_kernel(
         if (open) x = __fadd_rn(carry_v[s], x);
         x = __fmul_rn(x, rw);
       }
-      out_v[(long long)s * M + p] = x;
+      kl_st_pol(out_v + (long long)s * M + p, x, stream);
     }
     const int slot = cslot[i];
-    out_size[p] = last ? W : (alive ? 0 : sz);
-    if (out_mi) out_mi[p] = (alive && !last) ? hslot : (smi ? smi[p] : -1);
+    __stcs(out_size + p, last ? W : (alive ? 0 : sz));
+    if (out_mi)
+      __stcs(out_mi + p, (alive && !last) ? hslot
+                                        : (smi ? __ldcs(smi + p) : -1));
     if (last) {
-      out_slot[p] = hslot;
+      __stcs(out_slot + p, hslot);
       if (habs != p) {   // the last member's slot moves to the head and dies
         out_slot[habs] = slot;
-        if (parent) parent[slot] = hslot;
+        if (parent) kl_st_pol(parent + ((long long)slot - pbase), hslot, keep);
       }
     } else if (link) {
-      out_slot[p] = slot;
-      if (parent) parent[slot] = hslot;
+      __stcs(out_slot + p, slot);
+      if (parent) kl_st_pol(parent + ((long long)slot - pbase), hslot, keep);
     } else if (!alive) {
-      out_slot[p] = slot;
+      __stcs(out_slot + p, slot);
     }   // a head that is not last: written by its chain's last member
   };
   // 7. warp 0 looks back, for a chain entering from the left (then base is
@@ -341,7 +397,7 @@ KL_EXPORT int kl_chain_collapse(const void* sv, int S, long long M,
                                 int free_bits, int P, int smem, void* status,
                                 void* agg, void* out_v, void* out_size,
                                 void* out_slot, void* out_mi, void* parent,
-                                void* stream) {
+                                long long base, void* stream) {
   if (P < 32 || P > KL_CHAIN_MAX_P || (P & (P - 1)) != 0 ||
       (long long)smem != 4 * kl_chain_words(S, P) || smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
@@ -351,7 +407,7 @@ KL_EXPORT int kl_chain_collapse(const void* sv, int S, long long M,
   kl_chain_kernel<<<kl_blocks(M, P), P, smem, (cudaStream_t)stream>>>(
       (const float*)sv, S, M, P, (const int*)ssize, (const int*)sslot,
       (const int*)skey, (const int*)smi, thr, free_bits, (float*)out_v,
-      (int*)out_size, (int*)out_slot, (int*)out_mi, (int*)parent,
+      (int*)out_size, (int*)out_slot, (int*)out_mi, (int*)parent, base,
       (int*)status, (int*)agg);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,7 @@ main path went through the kernels.
 | permute_state        | csrc/permute_state.cu  | engine.py _sort_state / compact_sort      |
 |                      |                        | payloads                                  |
 | chain_collapse       | csrc/chain_collapse.cu | engine.py chain_collapse + parent fold    |
+|                      |                        | (and parallel/dist.py's local fold)       |
 | finalize             | csrc/finalize.cu       | engine.py _finalize_grouped               |
 | wrs_verdicts         | csrc/ttest.cu          | ops/ttest.py t_cdf, studentttest2,        |
 |                      |                        | wrs_verdicts                              |
@@ -283,7 +284,7 @@ def chain_plan(S: int, M: int) -> dict:
 
 
 def chain_collapse_plain(svals, ssizes, sslots, skey, threshold: float,
-                         h: int, smi=None, parent=None):
+                         h: int, smi=None, parent=None, base: int = 0):
     s, m = svals.shape
     starts = segment_starts(skey >> free_bits(h))
     alive = (ssizes > 0) & (skey != BIG_KEY)
@@ -315,7 +316,7 @@ def chain_collapse_plain(svals, ssizes, sslots, skey, threshold: float,
     mi_in = smi if smi is not None else torch.full_like(sslots, -1)
     new_mi = torch.where(dying, head_scs, mi_in)
     if parent is not None:
-        parent[new_scs[dying].long()] = head_scs[dying]
+        parent[new_scs[dying].long() - base] = head_scs[dying]
     return new_vt, new_size, new_scs, new_mi
 
 
@@ -323,15 +324,17 @@ def chain_collapse(svals: torch.Tensor, ssizes: torch.Tensor,
                    sslots: torch.Tensor, skey: torch.Tensor,
                    threshold: float, h: int,
                    smi: torch.Tensor | None = None,
-                   parent: torch.Tensor | None = None):
+                   parent: torch.Tensor | None = None, base: int = 0):
     """Collapse every chain of the sorted state (values f32 [S, M]
     contiguous; sizes, slots, combined keys int32 [M]; optional
     merged_into int32 [M]). Returns (values, sizes, slots, merged_into) in
-    the same positions; when ``parent`` (int32 [cap0]) is given, each dying
-    slot's parent is set to its chain head's slot in place."""
+    the same positions; when ``parent`` (int32, the entry of slot s at
+    s − ``base``) is given, each dying slot's parent is set to its chain
+    head's slot in place. Every dying slot must lie in [base, base +
+    len(parent)): a rank's parent shard holds all of its slots."""
     if not _on_cuda(svals, ssizes, sslots, skey, smi, parent):
         return chain_collapse_plain(svals, ssizes, sslots, skey, threshold,
-                                    h, smi, parent)
+                                    h, smi, parent, base)
     _check(svals, torch.float32, "svals", 2)
     if not svals.is_contiguous():
         raise ValueError("svals must be contiguous")
@@ -357,7 +360,7 @@ def chain_collapse(svals: torch.Tensor, ssizes: torch.Tensor,
                 _ptr(smi), float(threshold), free_bits(h), plan["P"],
                 plan["smem"], status.data_ptr(), agg.data_ptr(),
                 out_v.data_ptr(), out_size.data_ptr(), out_slot.data_ptr(),
-                out_mi.data_ptr(), _ptr(parent))
+                out_mi.data_ptr(), _ptr(parent), int(base))
         launches["chain_collapse"] += 1
     return out_v, out_size, out_slot, out_mi
 
@@ -612,6 +615,28 @@ def score_reads(codes: torch.Tensor, win_start: torch.Tensor,
 
 # --- K8: the cross-shard exchange -----------------------------------------------
 
+WIN_MAX_CHUNKS = 8192   # chunk offsets one exchange_window gather block scans
+
+
+def window_plan(c: int) -> dict:
+    """Launch arithmetic of ``exchange_window`` at c columns: ``words``
+    alive masks of 32 columns; chunks of ``cw`` words (32 · 2^k, the least
+    that leaves at most WIN_MAX_CHUNKS chunks: 32 up to 2^23 columns), one
+    block of 256 threads a chunk in the first pass; ``nb`` chunks, whose
+    offsets every block of the second pass scans in ``smem`` bytes of
+    shared memory (one pad word every 32, and the total); ``scratch``, the
+    int32 words of the masks of whole chunks and the chunk counts."""
+    if c < 1:
+        raise ValueError(f"exchange_window: c = {c}")
+    words = -(-c // 32)
+    cw = 32
+    while -(-words // cw) > WIN_MAX_CHUNKS:
+        cw *= 2
+    nb = -(-words // cw)
+    return dict(words=words, cw=cw, nb=nb, smem=4 * (nb + (nb >> 5) + 1),
+                scratch=nb * cw + nb)
+
+
 def exchange_window_plain(values_t, sizes, slots, e: int, rot: int):
     c = sizes.shape[0]
     dev = sizes.device
@@ -646,27 +671,25 @@ def exchange_window(values_t: torch.Tensor, sizes: torch.Tensor,
     if c < 1 or e < 1 or sizes.shape[0] != c or slots.shape[0] != c:
         raise ValueError(f"exchange_window: c = {c}, e = {e}, sizes "
                          f"{tuple(sizes.shape)}, slots {tuple(slots.shape)}")
+    plan = window_plan(c)
     dev = values_t.device
     i32 = dict(dtype=torch.int32, device=dev)
-    offs = torch.empty(-(-c // 1024) + 1, **i32)
+    scratch = torch.empty(plan["scratch"], **i32)   # masks, chunk counts
     pos = torch.empty(e, **i32)
     w_vals = torch.empty((S, e), dtype=torch.float32, device=dev)
     w_sizes = torch.empty(e, **i32)
     w_slots = torch.empty(e, **i32)
     _launch("kl_exchange_window", values_t.data_ptr(), values_t.stride(0), S,
-            c, sizes.data_ptr(), slots.data_ptr(), e, int(rot),
-            offs.data_ptr(), pos.data_ptr(), w_vals.data_ptr(),
+            c, sizes.data_ptr(), slots.data_ptr(), e, int(rot), plan["cw"],
+            scratch.data_ptr(), pos.data_ptr(), w_vals.data_ptr(),
             w_sizes.data_ptr(), w_slots.data_ptr())
     launches["exchange_window"] += 1
     return pos, w_vals, w_sizes, w_slots
 
 
 def exchange_fold_plain(m_vals, m_sizes, m_mi, m_scs, w_slots, pos, values_t,
-                        sizes, slots, mi, parent, base: int):
+                        sizes, parent, base: int):
     c0_loc, c = parent.shape[0], sizes.shape[0]
-    li = slots.long() - base
-    ok = (mi >= 0) & (li >= 0) & (li < c0_loc)
-    parent[li[ok]] = mi[ok]
     gi = m_scs.long() - base
     mine = (m_scs >= 0) & (gi >= 0) & (gi < c0_loc)
     inv = torch.full((c0_loc,), -1, dtype=torch.int64, device=parent.device)
@@ -686,24 +709,25 @@ def exchange_fold(m_vals: torch.Tensor, m_sizes: torch.Tensor,
                   m_mi: torch.Tensor, m_scs: torch.Tensor,
                   w_slots: torch.Tensor, pos: torch.Tensor,
                   values_t: torch.Tensor, sizes: torch.Tensor,
-                  slots: torch.Tensor, mi: torch.Tensor, parent: torch.Tensor,
-                  base: int) -> None:
-    """Fold one exchange back into this rank's state, in place.
+                  parent: torch.Tensor, base: int) -> None:
+    """Fold one exchange's global phase back into this rank's state, in
+    place.
 
     The global phase's result in its sorted positions (values f32 [S, n]
     contiguous; sizes, merged_into, slots int32 [n]), this rank's window
     (slots int32 [e] and pos int32 [e] from :func:`exchange_window`), the
     state after the local phase (values f32 [S, c] with contiguous rows,
-    sizes, slots, merged_into int32 [c]) and the parent shard (int32
-    [c0_loc], slot ``base + i`` at i). Sets parent[slot − base] for every
-    merge of the local phase and every global merge of this rank's slots,
-    and writes each window entry's merged size and values over its column
-    ``pos``; padding entries (pos = c) and other ranks' slots are dropped.
+    sizes int32 [c]) and the parent shard (int32 [c0_loc], slot ``base +
+    i`` at i). Sets parent[slot − base] for every global merge of this
+    rank's slots, and writes each window entry's merged size and values
+    over its column ``pos``; padding entries (pos = c) and other ranks'
+    slots are dropped. The local phase's merges are folded by
+    :func:`chain_collapse` with the same parent shard and base.
     """
     if not _on_cuda(m_vals, m_sizes, m_mi, m_scs, w_slots, pos, values_t,
-                    sizes, slots, mi, parent):
+                    sizes, parent):
         exchange_fold_plain(m_vals, m_sizes, m_mi, m_scs, w_slots, pos,
-                            values_t, sizes, slots, mi, parent, base)
+                            values_t, sizes, parent, base)
         return
     _check(m_vals, torch.float32, "m_vals", 2)
     _check(values_t, torch.float32, "values_t", 2)
@@ -711,19 +735,18 @@ def exchange_fold(m_vals: torch.Tensor, m_sizes: torch.Tensor,
         raise ValueError("m_vals must be contiguous")
     for name, t in (("m_sizes", m_sizes), ("m_mi", m_mi), ("m_scs", m_scs),
                     ("w_slots", w_slots), ("pos", pos), ("sizes", sizes),
-                    ("slots", slots), ("mi", mi), ("parent", parent)):
+                    ("parent", parent)):
         _check(t, torch.int32, name)
     S, n = m_vals.shape
     c, e = values_t.shape[1], w_slots.shape[0]
-    if (values_t.shape[0] != S or pos.shape[0] != e
-            or any(t.shape[0] != n for t in (m_sizes, m_mi, m_scs))
-            or any(t.shape[0] != c for t in (sizes, slots, mi))):
+    if (values_t.shape[0] != S or pos.shape[0] != e or sizes.shape[0] != c
+            or any(t.shape[0] != n for t in (m_sizes, m_mi, m_scs))):
         raise ValueError("exchange_fold: inconsistent shapes")
     c0_loc = parent.shape[0]
     inv = torch.empty(c0_loc, dtype=torch.int32, device=parent.device)
     _launch("kl_exchange_fold", m_vals.data_ptr(), S, n, m_sizes.data_ptr(),
             m_mi.data_ptr(), m_scs.data_ptr(), w_slots.data_ptr(),
             pos.data_ptr(), e, values_t.data_ptr(), values_t.stride(0), c,
-            sizes.data_ptr(), slots.data_ptr(), mi.data_ptr(),
-            parent.data_ptr(), int(base), c0_loc, inv.data_ptr())
+            sizes.data_ptr(), parent.data_ptr(), int(base), c0_loc,
+            inv.data_ptr())
     launches["exchange_fold"] += 1

@@ -37,7 +37,7 @@ SIGNATURES = {
     "kl_permute_state": (_P, _L, _I, _L, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                          _P, _P),
     "kl_chain_collapse": (_P, _I, _L, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
-                          _P, _P, _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P, _L, _P),
     "kl_finalize_roots": (_L, _L, _P, _P, _P, _P, _P, _P),
     "kl_finalize_segments": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "kl_finalize_place": (_L, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -45,10 +45,10 @@ SIGNATURES = {
     "kl_wrs_verdicts": (_P, _L, _L, _I, _I, _P, _F, _F, _I, _P, _P, _P, _P),
     "kl_key_directory": (_P, _I, _I, _P, _P),
     "kl_score_reads": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P, _P),
-    "kl_exchange_window": (_P, _L, _I, _L, _P, _P, _I, _I, _P, _P, _P, _P,
-                           _P, _P),
+    "kl_exchange_window": (_P, _L, _I, _L, _P, _P, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P),
     "kl_exchange_fold": (_P, _I, _L, _P, _P, _P, _P, _P, _I, _P, _L, _L, _P,
-                         _P, _P, _P, _L, _L, _P, _P),
+                         _P, _L, _L, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -7,15 +7,16 @@ slots) and the parent forest of its original slots [rank·c0_loc,
 
   1. **local phase**: the rank's shard is hashed against the replicated
      hyperplanes (``lsh_keys``), sorted and chain-collapsed (``permute_state``,
-     ``chain_collapse``), exactly as a single-device iteration;
+     ``chain_collapse``, which folds the merges into the parent shard),
+     exactly as a single-device iteration;
   2. **exchange**: the ``exchange_window`` kernel takes a fixed window of
      ``e`` alive survivors, rotating with the iteration so that every
      survivor is exchanged within ⌈alive/e⌉ iterations, and ONE all_gather
      moves (values, sizes, slots) of every rank's window: D·e·(S + 2)
      elements, independent of the row count;
   3. **global phase**: every rank collapses the D·e gathered columns
-     identically, and the ``exchange_fold`` kernel folds this rank's local
-     and global merges into its parent shard and writes its window back.
+     identically, and the ``exchange_fold`` kernel folds this rank's global
+     merges into its parent shard and writes its window back.
 
 The host reads the global alive count after every iteration (it sets the
 next iteration's h) and takes the reference's decisions at its program
@@ -74,13 +75,15 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
     """One sharded iteration. Returns (values_t, sizes, slots, global alive
     count); ``parent`` is updated in place."""
     h = engine._active_h_of(n_alive)               # from the GLOBAL count
+    base = mesh.rank * c0_loc
 
-    # ---- local phase: hash + single-pass chain collapse on my shard ----
+    # ---- local phase: hash + single-pass chain collapse on my shard, its
+    #      merges folded into my parent shard ----
     key, _ = kernels.lsh_keys(values_t, sizes, planes, h)
     skey, order = torch.sort(key, stable=True)
     sv, ss, sl = kernels.permute_state(values_t, sizes, slots, order)
-    values_t, sizes, slots, mi = kernels.chain_collapse(sv, ss, sl, skey,
-                                                        threshold, h)
+    values_t, sizes, slots, _ = kernels.chain_collapse(
+        sv, ss, sl, skey, threshold, h, None, parent, base)
 
     # ---- exchange: a rotating window of e alive survivors ----
     pos, w_vals, w_sizes, w_slots = kernels.exchange_window(
@@ -98,8 +101,7 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
     m_vals, m_sizes, m_scs, m_mi = kernels.chain_collapse(gv, gs, gsl, gskey,
                                                           threshold, h)
     kernels.exchange_fold(m_vals, m_sizes, m_mi, m_scs, w_slots, pos,
-                          values_t, sizes, slots, mi, parent,
-                          mesh.rank * c0_loc)
+                          values_t, sizes, parent, base)
     return values_t, sizes, slots, mesh.all_sum(int((sizes > 0).sum()))
 
 

@@ -289,14 +289,18 @@ def write_source_fastqs(work: str, src: np.ndarray, n_files: int,
 
 def exchange_inputs(values_t, sizes, slots, merged_into, world: int,
                     rank: int, e: int, seed: int = 0):
-    """The arguments of ``kernels.exchange_fold`` for ``rank`` of ``world``
-    ranks that all hold one local-phase result (values f32 [S, c]; sizes,
-    slots in [0, c) and merged_into int32 [c], tensors on one device), rank
-    d's slots and merges offset by d·c: every rank's window (rotation d),
-    gathered in rank order and collapsed by the global phase (``lsh_keys``,
-    the key sort, ``permute_state``, ``chain_collapse`` at 0.9), this
-    rank's window and a copy of its state, an identity parent shard and its
-    base. Runs through the kernel wrappers where the tensors lie."""
+    """One exchange of ``rank`` of ``world`` ranks that all hold one
+    local-phase result (values f32 [S, c]; sizes, slots in [0, c) and
+    merged_into int32 [c], tensors on one device), rank d's slots and
+    merges offset by d·c: every rank's window (rotation d), gathered in
+    rank order and collapsed by the global phase (``lsh_keys``, the key
+    sort, ``permute_state``, ``chain_collapse`` at 0.9). Returns the global
+    result (values, sizes, merged_into, slots), this rank's window (slots,
+    pos), a copy of its local state (values, sizes, slots, merged_into), an
+    identity parent shard and its base: ``kernels.exchange_fold`` takes
+    all but the local slots and merged_into, which ``chain_collapse``
+    folds at that base. Runs through the kernel wrappers where the tensors
+    lie."""
     import torch
 
     from kmerlsh_tpu_torch import kernels

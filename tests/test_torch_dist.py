@@ -383,48 +383,56 @@ def test_exchange_window_plain_matches_reference(n_alive, rot):
 
 
 def _synthetic_exchange(D, rank, c, e, S, seed):
-    """D shards after a local phase, their windows gathered, and the
-    replicated global phase through the plain kernels: (the global result,
-    g_slots, this rank's window and local state, parent, base)."""
+    """D shards through the plain local phase (hash, sort, chain collapse
+    at 0.9), their windows gathered, and the replicated global phase
+    through the plain kernels: (the global result, g_slots, this rank's
+    window, its sorted state before the local collapse and after it,
+    parent, base)."""
     r = np.random.default_rng(seed)
     c0 = c
-    wins, local = [], None
+    planes = torch.from_numpy(r.normal(size=(S, 31)).astype(np.float32))
+    # a few profiles shared by the shards, so that the global phase merges
+    # across shards; noise enough that the local phase leaves survivors
+    prof = r.normal(size=(8, S)).astype(np.float32)
+    wins, pre, local = [], None, None
     for d in range(D):
         n_alive = [0, e // 2, e, 3 * e][(d + seed) % 4]
         sizes = np.zeros(c, np.int32)
-        sizes[r.choice(c, size=min(n_alive, c), replace=False)] = 1
-        # a few profiles, so that the global phase merges across shards
-        prof = r.normal(size=(4, S)).astype(np.float32)
-        vals = (prof[r.integers(0, 4, size=c)].T
-                + 0.001 * r.normal(size=(S, c))).astype(np.float32)
+        sizes[r.choice(c, size=min(n_alive, c), replace=False)] = (
+            r.integers(1, 9, size=min(n_alive, c)))
+        vals = (prof[r.integers(0, 8, size=c)].T
+                + 0.3 * r.normal(size=(S, c))).astype(np.float32)
         slots = (r.permutation(c) + d * c0).astype(np.int32)
-        mi = np.where((sizes == 0) & (r.random(c) < 0.3),
-                      d * c0 + r.integers(0, c0, size=c), -1).astype(np.int32)
-        t = [torch.from_numpy(a) for a in (vals, sizes, slots, mi)]
-        win = kernels.exchange_window_plain(t[0], t[1], t[2], e, seed)
-        wins.append(win)
+        t = [torch.from_numpy(a) for a in (vals, sizes, slots)]
+        key, _ = kernels.lsh_keys_plain(t[0], t[1], planes, 2)
+        skey, order = torch.sort(key, stable=True)
+        sorted_d = (*kernels.permute_state_plain(*t, order), skey)
+        st = kernels.chain_collapse_plain(*sorted_d, 0.9, 2)
+        wins.append(kernels.exchange_window_plain(st[0], st[1], st[2], e,
+                                                  seed))
         if d == rank:
-            local = t
+            pre, local = sorted_d, st
     g_vals = torch.cat([w[1] for w in wins], dim=1)
     g_sizes = torch.cat([w[2] for w in wins])
     g_slots = torch.cat([w[3] for w in wins])
-    planes = torch.from_numpy(r.normal(size=(S, 31)).astype(np.float32))
     key, _ = kernels.lsh_keys_plain(g_vals, g_sizes, planes, 2)
     skey, order = torch.sort(key, stable=True)
     gv, gs, gsl = kernels.permute_state_plain(g_vals, g_sizes, g_slots, order)
-    m = kernels.chain_collapse_plain(gv, gs, gsl, skey, 0.5, 2)
+    m = kernels.chain_collapse_plain(gv, gs, gsl, skey, 0.9, 2)
     parent = torch.from_numpy(
         (rank * c0 + r.permutation(c0)).astype(np.int32))
-    return m, g_slots, wins[rank], local, parent, rank * c0
+    return m, g_slots, wins[rank], pre, local, parent, rank * c0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 @pytest.mark.parametrize("D,rank", [(1, 0), (4, 0), (4, 3)])
 def test_exchange_fold_plain_matches_reference(D, rank, seed):
-    """The plain fold against a numpy transcription of dist.py:112-113 and
-    134-157 with the reference's _realign_to."""
+    """The local phase's fold (chain_collapse_plain with the parent shard
+    and its base) and then the plain exchange fold, against a numpy
+    transcription of dist.py:112-113 and 134-157 with the reference's
+    _realign_to."""
     c, e, S = 512, 64, 6
-    (m_vals, m_sizes, m_scs, m_mi), g_slots, win, local, parent, base = \
+    (m_vals, m_sizes, m_scs, m_mi), g_slots, win, pre, local, parent, base = \
         _synthetic_exchange(D, rank, c, e, S, seed)
     vals, sizes, slots, mi = (t.clone() for t in local)
     pos = win[0]
@@ -447,8 +455,10 @@ def test_exchange_fold_plain_matches_reference(D, rank, seed):
     want_vals[:, p] = r_vals[:, rank * e:(rank + 1) * e][:, keep]
     want_sizes[p] = r_sizes[rank * e:(rank + 1) * e][keep]
 
+    again = kernels.chain_collapse_plain(*pre, 0.9, 2, None, parent, base)
+    assert all(torch.equal(a, b) for a, b in zip(again, local))
     kernels.exchange_fold_plain(m_vals, m_sizes, m_mi, m_scs, win[3], pos,
-                                vals, sizes, slots, mi, parent, base)
+                                vals, sizes, parent, base)
     assert np.array_equal(parent.numpy(), want_par)
     assert np.array_equal(sizes.numpy(), want_sizes)
     assert np.array_equal(vals.numpy(), want_vals)
@@ -467,10 +477,8 @@ def test_exchange_fold_drops_padding_and_foreign_slots():
     w_slots = torch.tensor([103, -1, -1, -1], dtype=torch.int32)
     pos = torch.tensor([2, c, c, c], dtype=torch.int32)
     vals, sizes = torch.ones((S, c)), torch.ones(c, dtype=torch.int32)
-    slots = torch.arange(base, base + c, dtype=torch.int32)
-    mi = torch.full((c,), -1, dtype=torch.int32)
     kernels.exchange_fold_plain(m_vals, m_sizes, m_mi, m_scs, w_slots, pos,
-                                vals, sizes, slots, mi, parent, base)
+                                vals, sizes, parent, base)
     assert parent.tolist() == list(range(base, base + c))
     assert sizes.tolist() == [1] * c and vals[:, 2].tolist() == [0.0, 0.0]
 

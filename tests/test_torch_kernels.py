@@ -319,12 +319,16 @@ def test_mode_e_wrappers_refuse_bad_input(dev):
                             15, 0.5)
 
 
+@pytest.mark.parametrize("n", [20, 70001, 1 << 16, 1 << 22, (1 << 23) + 5])
 @pytest.mark.parametrize("n_alive", [0, 100, 4096, 30000])
 @pytest.mark.parametrize("rot", [0, 5])
-def test_exchange_window_exact(dev, n_alive, rot):
+def test_exchange_window_exact(dev, n, n_alive, rot):
     """n_local below, equal to and above e = 4096, and an all-padding
-    window; the values a column slice of a wider matrix."""
-    n, e = 1 << 16, 4096
+    window; the values a column slice of a wider matrix; c below 32, no
+    multiple of 1024, a sharded rank's 2^22 and one past 2^23 (two groups
+    of 32 mask words a chunk)."""
+    e = 4096
+    n_alive = min(n_alive, n)
     r = np.random.default_rng(n_alive + rot)
     sizes = np.zeros(n, np.int32)
     sizes[r.choice(n, size=n_alive, replace=False)] = r.integers(
@@ -338,9 +342,12 @@ def test_exchange_window_exact(dev, n_alive, rot):
     assert int((k[0] < n).sum()) == min(n_alive, e)
 
 
+@pytest.mark.parametrize("n,e", [(1 << 15, 1024), (1 << 22, 4096)])
 @pytest.mark.parametrize("rank", [0, 3])
-def test_exchange_fold_exact(dev, rank):
-    n = 1 << 15
+def test_exchange_fold_exact(dev, rank, n, e):
+    """The sharded fold as _one_dist_iteration runs it: chain_collapse with
+    the rank's parent shard and base, then exchange_fold, each against its
+    plain version."""
     _, _, values, sizes = _state(n, dev, n_prof=64)
     key, _ = kernels.lsh_keys(values, sizes,
                               rng.draw_hyperplanes(3, 0, S).to(dev), 4)
@@ -349,16 +356,42 @@ def test_exchange_fold_exact(dev, rank):
     sv, ss, sl = kernels.permute_state(values, sizes, slots, order)
     local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, 4)
     (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
-     base) = testdata.exchange_inputs(*local, 4, rank, 1024)
+     base) = testdata.exchange_inputs(*local, 4, rank, e)
     assert int((glob[2] >= 0).sum()) > 0 and int((lmi >= 0).sum()) > 0
-    kv, ks, kp = lv.clone(), ls.clone(), parent.clone()
-    kernels.exchange_fold(*glob, w_slots, pos, kv, ks, lsl, lmi, kp, base)
-    pv, ps, pp = lv.clone(), ls.clone(), parent.clone()
-    kernels.exchange_fold_plain(*glob, w_slots, pos, pv, ps, lsl, lmi, pp,
-                                base)
+    kp, pp = parent.clone(), parent.clone()
+    k = kernels.chain_collapse(sv, ss, sl + base, skey, 0.95, 4, None, kp,
+                               base)
+    p = kernels.chain_collapse_plain(sv, ss, sl + base, skey, 0.95, 4, None,
+                                     pp, base)
+    for a, b in zip(k[1:], p[1:]):
+        assert torch.equal(a, b)
+    assert torch.equal(kp, pp)
+    assert all(torch.equal(a, b) for a, b in zip(k[1:], (ls, lsl, lmi)))
+    kv, ks = lv.clone(), ls.clone()
+    kernels.exchange_fold(*glob, w_slots, pos, kv, ks, kp, base)
+    pv, ps = lv.clone(), ls.clone()
+    kernels.exchange_fold_plain(*glob, w_slots, pos, pv, ps, pp, base)
     for a, b in ((kv, pv), (ks, ps), (kp, pp)):
         assert torch.equal(a, b)
     assert not torch.equal(kp, parent)
+
+
+@pytest.mark.parametrize("base", [1, 70001 * 3])
+def test_chain_collapse_folds_at_a_base(dev, base):
+    """A parent shard of the slots [base, base + n): the kernel writes the
+    entry of slot s at s - base, as the plain version does."""
+    sv, ss, sl, skey = _runs_case(dev, S, 70001)
+    n = sl.shape[0]
+    pk = torch.arange(base, base + n, dtype=torch.int32, device=dev)
+    pp = pk.clone()
+    k = kernels.chain_collapse(sv, ss, sl + base, skey, 0.9, 3, None, pk,
+                               base)
+    p = kernels.chain_collapse_plain(sv, ss, sl + base, skey, 0.9, 3, None,
+                                     pp, base)
+    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3]), (pk, pp)):
+        assert torch.equal(a, b)
+    assert int((pk != torch.arange(base, base + n, dtype=torch.int32,
+                                   device=dev)).sum()) > n // 4
 
 
 def test_exchange_wrappers_refuse_bad_input(dev):
@@ -371,4 +404,7 @@ def test_exchange_wrappers_refuse_bad_input(dev):
     i32 = torch.zeros(16, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         kernels.exchange_fold(vals[:, :16], i32, i32, i32, i32[:4], i32[:4],
-                              vals, sz, sz, sz.long(), sz, 0)
+                              vals, sz.long(), sz, 0)
+    with pytest.raises(ValueError):
+        kernels.exchange_fold(vals[:, :16], i32, i32, i32, i32[:4], i32[:4],
+                              vals, sz[:10], sz, 0)

@@ -1,8 +1,8 @@
 """What the CUDA sources rely on, checked without the card: the launch
-arithmetic of the LSH-key, permute and chain-collapse kernels
-(``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``), the grouping
-identity of finalize's steps, and the read scorer's prefix directory and
-bucket search."""
+arithmetic of the LSH-key, permute, chain-collapse and exchange-window
+kernels (``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``,
+``window_plan``), the grouping identity of finalize's steps, and the read
+scorer's prefix directory and bucket search."""
 
 import numpy as np
 import pytest
@@ -61,6 +61,36 @@ def test_chain_plan_fills_the_card_at_every_capacity():
     # 132 SMs: at 2^20 x 20 and above, several blocks per SM
     for M in (1 << 20, 2_000_000, 1 << 24):
         assert kernels.chain_plan(20, M)["blocks"] >= 4 * 132
+
+
+# --- K8a exchange_window --------------------------------------------------
+
+@pytest.mark.parametrize("c,cw,nb", [
+    (1, 32, 1), (31, 32, 1), (1024, 32, 1), (1025, 32, 2),
+    (1 << 20, 32, 1024), (1 << 22, 32, 4096), (1 << 23, 32, 8192),
+    ((1 << 23) + 1, 64, 4097), (1 << 24, 64, 8192), (1 << 26, 256, 8192)])
+def test_window_plan_chunks_cover_every_column_once(c, cw, nb):
+    plan = kernels.window_plan(c)
+    assert (plan["cw"], plan["nb"]) == (cw, nb)
+    assert plan["words"] == -(-c // 32)
+    # chunk b holds columns [b cw 32, (b + 1) cw 32); the last is not empty
+    assert (nb - 1) * cw * 32 < c <= nb * cw * 32
+    # the offsets of every chunk, padded one word in 32, and the total fit
+    # the 48 KB a block takes without opting in
+    assert plan["smem"] == 4 * (nb + nb // 32 + 1) <= 48 * 1024
+    assert plan["scratch"] == nb * cw + nb
+
+
+def test_window_plan_follows_the_source():
+    import re
+
+    from kmerlsh_tpu_torch.kernels import build
+
+    src = (build.CSRC / "exchange.cu").read_text()
+    cap = int(re.search(r"#define KL_WIN_MAX_CHUNKS (\d+)", src).group(1))
+    assert cap == kernels.WIN_MAX_CHUNKS
+    with pytest.raises(ValueError):
+        kernels.window_plan(0)
 
 
 # --- K1b lsh_keys ---------------------------------------------------------

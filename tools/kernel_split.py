@@ -1,9 +1,10 @@
-"""Time lsh_keys and finalize, or the read scorer, on one CUDA card and
-split each call's card time by kernel; or measure a mode-C session's bytes
-a row.
+"""Time lsh_keys and finalize, the read scorer or the cross-shard exchange
+on one CUDA card and split each call's card time by kernel; or measure a
+mode-C session's bytes a row.
 
     python3 tools/kernel_split.py [M ...]      (default 2^21 and 2^24)
     python3 tools/kernel_split.py reads
+    python3 tools/kernel_split.py exchange [c ...]   (default 2^20 and 2^22)
     python3 tools/kernel_split.py memory
 
 It runs whichever ``kmerlsh_tpu_torch`` comes first on the path, so that
@@ -19,7 +20,13 @@ kernel (torch.profiler; the key sorts as ``sort``), and the forest's depth.
 31, 2^22 keys); in a tree with a key directory, the directory's build on
 its own and the kernel with the directory built beforehand, at 16 to 22
 directory bits (the kernel's masks equal the plain version's at each).
-``memory`` runs the engine's ``cluster_counts`` at 2^16 to 2^24 columns of
+``exchange`` times one sharded exchange of rank 1 of four at c columns of
+20 samples, e = 4096 (chip_smoke.py phase 3's local phase, then
+testdata.exchange_inputs): exchange_window, exchange_fold, and
+chain_collapse at the rank's base as the tree's sharded iteration calls it
+(with the local fold where the tree folds there, and without), and the sum
+of one exchange's chain_collapse and exchange_fold. ``memory`` runs the
+engine's ``cluster_counts`` at 2^16 to 2^24 columns of
 20 samples, on uniform random counts and on counts with the distribution of
 bench.py make_data, with 3 and with 21 iterations, and prints each
 session's peak of allocated memory above what was allocated before it,
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -71,12 +79,29 @@ def split(fn) -> dict[str, float]:
     return by
 
 
-def report(what: str, M: int, fn) -> None:
+def host_ms(fn, calls: int = 50) -> float:
+    """ms the host spends a call enqueuing fn() (after a synchronize; the
+    card runs behind it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
+
+
+def report(what: str, M: int, fn) -> float:
+    """Log fn's time a call, the host's time to enqueue one and its card
+    time by kernel; returns the first."""
     by = split(fn)
     parts = ", ".join(f"{k} {v:.4f}" for k, v in
                       sorted(by.items(), key=lambda kv: -kv[1]))
-    cs.log(f"{what} at {M}: {cs.cuda_ms(fn):.4f} ms a call; card time of one "
-           f"call {sum(by.values()):.4f} ms: {parts}")
+    ms = cs.cuda_ms(fn)
+    cs.log(f"{what} at {M}: {ms:.4f} ms a call (the host enqueues one in "
+           f"{host_ms(fn):.4f} ms); card time of one call "
+           f"{sum(by.values()):.4f} ms: {parts}")
+    return ms
 
 
 def measure(M: int) -> None:
@@ -130,6 +155,48 @@ def measure_reads() -> None:
     kernels.key_directory_bits = chosen
 
 
+def measure_exchange(c: int) -> None:
+    import inspect
+
+    S, dev, e = cs.S, cs.DEV, 4096
+    counts = torch.from_numpy(cs.make_counts(c, seed=1)).to(dev)
+    cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+    vt, sz = kernels.abundance_transform(counts, (cov / c).float())
+    del counts
+    h = engine._active_h_of(int((sz > 0).sum()))
+    key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(0, 0, S).to(dev), h)
+    skey, order = torch.sort(key, stable=True)
+    sl = torch.arange(c, dtype=torch.int32, device=dev)
+    sv, ss, sl = kernels.permute_state(vt, sz, sl, order)
+    local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, h)
+    (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
+     base) = testdata.exchange_inputs(*local, 4, 1, e)
+    slb = sl + base
+    values, sizes, slots, _ = local
+    report("exchange_window", c,
+           lambda: kernels.exchange_window(values, sizes, slots, e, 1))
+    bare = report("chain_collapse without the fold", c,
+                  lambda: kernels.chain_collapse(sv, ss, slb, skey, 0.95, h))
+    # the fold and the write-back run in place: each call writes the same
+    # entries again
+    if "mi" in inspect.signature(kernels.exchange_fold).parameters:
+        k3 = bare   # this tree folds the local merges in exchange_fold
+        fold = report("exchange_fold (local and global merges)", c,
+                      lambda: kernels.exchange_fold(*glob, w_slots, pos, lv,
+                                                    ls, lsl, lmi, parent,
+                                                    base))
+    else:
+        k3 = report("chain_collapse with the local fold", c,
+                    lambda: kernels.chain_collapse(sv, ss, slb, skey, 0.95,
+                                                   h, None, parent, base))
+        fold = report("exchange_fold (global merges)", c,
+                      lambda: kernels.exchange_fold(*glob, w_slots, pos, lv,
+                                                    ls, parent, base))
+    cs.log(f"one exchange at {c}: chain_collapse as the sharded iteration "
+           f"calls it {k3:.4f} + exchange_fold {fold:.4f} = "
+           f"{k3 + fold:.4f} ms")
+
+
 def session_peak(counts, v, thr) -> int:
     torch.cuda.synchronize(cs.DEV)
     base = torch.cuda.memory_allocated(cs.DEV)
@@ -170,6 +237,10 @@ def main() -> None:
     cs.log(f"kmerlsh_tpu_torch from {os.path.dirname(kernels.__file__)}")
     if sys.argv[1:] in (["reads"], ["memory"]):
         {"reads": measure_reads, "memory": measure_memory}[sys.argv[1]]()
+        return
+    if sys.argv[1:2] == ["exchange"]:
+        for c in [int(a) for a in sys.argv[2:]] or [1 << 20, 1 << 22]:
+            measure_exchange(c)
         return
     for M in [int(a) for a in sys.argv[1:]] or [cs.LATE, cs.FULL]:
         measure(M)

@@ -1,7 +1,9 @@
-"""Time text variants of the LSH-key and finalize kernels against the
-sources as committed, on one CUDA card, in one process.
+"""Time text variants of the LSH-key and finalize kernels, or of the chain
+collapse's parent fold, against the sources as committed, on one CUDA
+card, in one process.
 
     python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py fold
 
 Each variant is a list of substitutions in ``kmerlsh_tpu_torch/csrc``; the
 sources of every variant are compiled with the flags of
@@ -35,6 +37,24 @@ its outputs equal the plain version's. The variants:
                once;
   write-back   finalize's root chase writes each root back over the row's
                and its parent's link, so that later chases stop early.
+
+``fold`` times chain_collapse with the parent fold of a sharded rank (rank
+1 of four: its slots and parent shard offset by base) and without it, on
+chip_smoke.py phase 3's first iteration at 2^20, 2^22 and 2^24 x 20, for
+the variants of FOLD_VARIANTS (two rounds, alternating; sizes, slots,
+merged_into and the parent shard checked equal to the plain version's):
+
+  committed      the sources as they are: the values read (cp.async) and
+                 written with an L2 evict-first policy, the int columns
+                 read and written in sorted order (sizes, keys, slots,
+                 merged_into) streamed (ld/st.global.cs), the parent
+                 entries written with evict-last (createpolicy), so that
+                 the stream does not evict the parent shard's lines
+                 between the scattered writes;
+  no-hints       every access with the default policy;
+  no-int-streams the int columns with the default policy;
+  parent-last    the parent entries' policy alone;
+  values-first   the values' policy alone.
 
 A variant that does not compile is reported and left out.
 """
@@ -355,8 +375,45 @@ VARIANTS = {
 # lsh_keys not bit-exact by design
 INEXACT = ("fma", "no-float", "no-memory", "fma-no-memory")
 
+VALUES_PLAIN = [
+    ("chain_collapse.cu", "kl_cp_async4_pol(trow + i, row + i, stream)",
+     "kl_cp_async4(trow + i, row + i)"),
+    ("chain_collapse.cu", "kl_cp_async4_pol(trow - 1, row - 1, stream)",
+     "kl_cp_async4(trow - 1, row - 1)"),
+    ("chain_collapse.cu", "kl_cp_async4_pol(trow + P, row + P, stream)",
+     "kl_cp_async4(trow + P, row + P)"),
+    ("chain_collapse.cu", "kl_st_pol(out_v + (long long)s * M + p, x, stream);",
+     "out_v[(long long)s * M + p] = x;"),
+]
+PARENT_PLAIN = [
+    ("chain_collapse.cu",
+     "kl_st_pol(parent + ((long long)slot - pbase), hslot, keep);",
+     "parent[(long long)slot - pbase] = hslot;"),
+]
+INTS_PLAIN = [
+    ("chain_collapse.cu", "    csz[i] = __ldcs(ssize + base + i);\n"
+     "    ckey[i] = __ldcs(skey + base + i);\n"
+     "    cslot[i] = __ldcs(sslot + base + i);",
+     "    csz[i] = ssize[base + i];\n    ckey[i] = skey[base + i];\n"
+     "    cslot[i] = sslot[base + i];"),
+    ("chain_collapse.cu", "    __stcs(out_size + p, last ? W : (alive ? 0 : sz));\n"
+     "    if (out_mi)\n      __stcs(out_mi + p, (alive && !last) ? hslot\n"
+     "                                        : (smi ? __ldcs(smi + p) : -1));",
+     "    out_size[p] = last ? W : (alive ? 0 : sz);\n"
+     "    if (out_mi) out_mi[p] = (alive && !last) ? hslot : (smi ? smi[p] : -1);"),
+    ("chain_collapse.cu", "__stcs(out_slot + p, hslot);", "out_slot[p] = hslot;"),
+    ("chain_collapse.cu", "__stcs(out_slot + p, slot);", "out_slot[p] = slot;"),
+]
+FOLD_VARIANTS = {
+    "committed": [],
+    "no-hints": VALUES_PLAIN + PARENT_PLAIN + INTS_PLAIN,
+    "no-int-streams": INTS_PLAIN,
+    "parent-last": VALUES_PLAIN + INTS_PLAIN,
+    "values-first": PARENT_PLAIN + INTS_PLAIN,
+}
 
-def build_variants() -> dict[str, ctypes.CDLL]:
+
+def build_variants(variants: dict = VARIANTS) -> dict[str, ctypes.CDLL]:
     """One library per variant; the sources no variant changes compile
     once."""
     shutil.rmtree(WORK, ignore_errors=True)
@@ -365,7 +422,7 @@ def build_variants() -> dict[str, ctypes.CDLL]:
     base = {p.name: p.read_text() for p in build.CSRC.glob("*.cu")}
     nvcc = build._nvcc()
     jobs, objs = [], {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         texts = {}
         for src, old, new in subs:
             text = texts.get(src, base[src])
@@ -392,7 +449,7 @@ def build_variants() -> dict[str, ctypes.CDLL]:
             cs.log(f"variant {name} left out: nvcc failed:\n{err[-2000:]}")
             failed.add(name)
     libs = {}
-    for name in VARIANTS:
+    for name in variants:
         if name in failed:
             continue
         lib = WORK / f"lib_{name}.so"
@@ -431,7 +488,53 @@ def timed(fn, args, want) -> str:
     return f"{cs.cuda_ms(lambda: fn(*args)):.4f} ms (exact: {same})"
 
 
+def fold_inputs(M: int):
+    """Phase 3's sorted state of the first iteration at M x 20, its slots
+    offset to rank 1's, the parent shard, the base and h."""
+    S, dev = cs.S, cs.DEV
+    counts = torch.from_numpy(cs.make_counts(M, seed=1)).to(dev)
+    cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+    vt, sz = kernels.abundance_transform(counts, (cov / M).float())
+    del counts
+    h = engine._active_h_of(int((sz > 0).sum()))
+    key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(0, 0, S).to(dev), h)
+    skey, order = torch.sort(key, stable=True)
+    sl = torch.arange(M, M + M, dtype=torch.int32, device=dev)
+    sv, ss, sl = kernels.permute_state(vt, sz, sl, order)
+    parent = torch.arange(M, M + M, dtype=torch.int32, device=dev)
+    return (sv, ss, sl, skey), parent, M, h
+
+
+def main_fold() -> None:
+    libs = build_variants(FOLD_VARIANTS)
+    for M in (cs.SMALL, cs.OOC_BATCH, cs.FULL):
+        build._lib = libs["committed"]
+        state, parent0, base, h = fold_inputs(M)
+        want_p = parent0.clone()
+        want = kernels.chain_collapse_plain(*state, 0.95, h, None, want_p,
+                                            base)
+        for rnd in range(2):
+            for name, lib in libs.items():
+                build._lib = lib
+                par = parent0.clone()
+                got = kernels.chain_collapse(*state, 0.95, h, None, par, base)
+                same = all(torch.equal(a, b) for a, b in
+                           zip((*got[1:], par), (*want[1:], want_p)))
+                fold = cs.cuda_ms(lambda: kernels.chain_collapse(
+                    *state, 0.95, h, None, par, base))
+                bare = cs.cuda_ms(lambda: kernels.chain_collapse(
+                    *state, 0.95, h))
+                cs.log(f"variant {name} at {M}, round {rnd}: chain_collapse "
+                       f"with the fold at base {base} {fold:.4f} ms, without "
+                       f"{bare:.4f} ms (exact: {same})")
+        del state, parent0, want, want_p
+    build._lib = None
+
+
 def main() -> None:
+    if sys.argv[1:] == ["fold"]:
+        main_fold()
+        return
     libs = build_variants()
     for M in (cs.LATE, cs.FULL):
         keys_in, fin_in = inputs(M, libs["committed"])
