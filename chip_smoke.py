@@ -16,7 +16,9 @@ Phases:
      2^20 x 20 local-phase result with e = 4096 (the fold after a global
      phase over four ranks' windows, rank 1's local merges folded by
      chain_collapse at its base, which is timed with and without that
-     fold), the t-test on 2^20 cluster rows of 10 + 10 samples, the read
+     fold), the t-test on 2^20 cluster rows of 10 + 10 samples and of
+     50 + 50 (each with the continued fraction's steps: the mean a row and
+     the mean of the slowest of 32 consecutive rows), the read
      scorer on one part of 2^16 reads of 150 bp against 2^22 keys (k =
      31), with the key directory it searches timed on its own (its library
      call: torch.searchsorted of each prefix's least key in the keys) and
@@ -55,8 +57,10 @@ Phases:
      alternating, and once more with the device scorer under
      torch.profiler: the mode-E kernels' launch counts, sampled verdicts
      against a float64 recomputation, extracted reads equal between all
-     runs, E_wrs and reads/s of every run, and the card's idle share in
-     the traced run;
+     runs, E_wrs and reads/s of every run, E_wrs replayed on the
+     clustering file and split into the parse, the upload, the t-test
+     kernel and the pull, the kernel on these cluster rows against its
+     plain version, and the card's idle share in the traced run;
   7. sharded, four ranks on the one card: four kmerlsh-torch processes
      (--coordinator / --num-processes / --process-id, --device cuda, so
      all on cuda:0 over gloo) run phase 5's mode C and then phase 6's mode
@@ -100,7 +104,7 @@ from kmerlsh_tpu_torch.cli import main as cli_main, params_from_args  # noqa: E4
 from kmerlsh_tpu_torch.cluster import engine  # noqa: E402
 from kmerlsh_tpu_torch.io import clusterio, counts as countsio  # noqa: E402
 from kmerlsh_tpu_torch.kernels import build  # noqa: E402
-from kmerlsh_tpu_torch.ops import lsh, reads, rng  # noqa: E402
+from kmerlsh_tpu_torch.ops import lsh, reads, rng, ttest  # noqa: E402
 from kmerlsh_tpu_torch.parallel import dist  # noqa: E402
 from kmerlsh_tpu_torch.utils import hbm  # noqa: E402
 
@@ -113,6 +117,7 @@ FULL = 1 << 24
 OOC_BATCH = 1 << 22      # phase 5b's --batch-thresh: four batch passes
 RANKS = 4                # phase 7's processes, all on the one card
 WIDE_S = 600             # many samples: lsh_keys' planes fill shared memory
+WIDE_E = 100             # the t-test's wider rows: 50 + 50 samples
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
@@ -233,6 +238,21 @@ def _exact(name: str, pairs) -> float:
             bad = int((x != y).sum())
             raise AssertionError(f"{name}: output {i} differs in {bad} places")
     return _max_err(pairs)
+
+
+def step_stats(steps: torch.Tensor) -> str:
+    """The continued fraction's steps on a row set (ttest.fraction_steps):
+    the mean over the rows that run it, and the mean over each 32
+    consecutive rows of the slowest one (a warp of one thread a row runs
+    that long)."""
+    run = steps[steps > 0].double()
+    warps = torch.nn.functional.pad(steps, (0, -len(steps) % 32))
+    slowest = warps.view(-1, 32).max(1).values.double()
+    return (f"{len(run)} of {len(steps)} rows run the continued fraction, "
+            f"{float(run.mean()) if len(run) else 0.0:.3f} steps a row on "
+            f"average ({int(run.max()) if len(run) else 0} at most); the "
+            f"slowest of 32 consecutive rows {float(slowest.mean()):.3f} on "
+            f"average")
 
 
 def bound(n_bytes: float, flops: float = 0.0) -> dict:
@@ -521,15 +541,14 @@ def finalize_deep() -> None:
         f"{entry['plain_ms']:.4f} ms")
 
 
-def phase_kernels_mode_e() -> dict:
-    """The t-test on 2^20 cluster rows of 10 + 10 samples and the read
-    scorer on one full part (2^16 reads of 150 bp, k = 31, 2^22 keys), each
-    against its plain version on the same CUDA inputs."""
-    res = {}
-    values, sizes = testdata.wrs_rows(SMALL, S // 2, S // 2, seed=3)
+def wrs_case(values: np.ndarray, sizes: np.ndarray, n: int,
+             what: str) -> dict:
+    """The t-test kernel on rows of n + n samples against its plain version
+    (verdicts exact, tails within rtol 1e-5 / atol 1e-6), both timed, with
+    its bound and the fraction's steps. Returns the kernel's entry."""
     v = torch.from_numpy(values).to(DEV)
     sz = torch.from_numpy(sizes).to(DEV)
-    args = (v, sz, S // 2, S // 2, 0.01, 5)
+    args = (v, sz, n, n, 0.01, 5)
     k = kernels.wrs_verdicts(*args)
     p = kernels.wrs_verdicts_plain(*args)
     _exact("wrs_verdicts", [(k[0], p[0])])
@@ -540,15 +559,34 @@ def phase_kernels_mode_e() -> dict:
     n1, n2 = int((k[0] == 1).sum()), int((k[0] == 2).sum())
     if n1 == 0 or n2 == 0:
         raise AssertionError(f"wrs_verdicts: {n1} / {n2} rows in groups 1 / 2")
-    # rows and sizes in, verdicts and both tails out; four operations per
-    # value (the group sums and squared deviations), the t CDF's continued
-    # fraction not counted
-    res["wrs_verdicts"] = dict(
-        max_abs_err=_max_err(zip(k[1:], p[1:])),
-        **timings(lambda: kernels.wrs_verdicts(*args),
-                  lambda: kernels.wrs_verdicts_plain(*args),
-                  4 * S * SMALL + 13 * SMALL, 4 * S * SMALL))
-    log(f"wrs_verdicts: {SMALL} rows, {n1} in group 1, {n2} in group 2")
+    N = len(values)
+    steps = ttest.fraction_steps(v, n, n)
+    # rows and sizes in, verdicts and both tails out; four operations a
+    # value (the group sums and squared deviations), 24 a row (the
+    # statistic, the swap and the tail) and 12 a step of the continued
+    # fraction these rows take
+    entry = dict(max_abs_err=_max_err(zip(k[1:], p[1:])),
+                 **timings(lambda: kernels.wrs_verdicts(*args),
+                           lambda: kernels.wrs_verdicts_plain(*args),
+                           (8 * n + 13) * N,
+                           (8 * n + 24) * N + 12 * float(steps.sum())))
+    log(f"wrs_verdicts on {what}: {n1} in group 1, {n2} in group 2; "
+        f"kernel {entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  "
+        f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); "
+        + step_stats(steps))
+    return entry
+
+
+def phase_kernels_mode_e() -> dict:
+    """The t-test on 2^20 cluster rows of 10 + 10 samples (and of 50 + 50,
+    logged only) and the read scorer on one full part (2^16 reads of 150
+    bp, k = 31, 2^22 keys), each against its plain version on the same
+    CUDA inputs."""
+    res = {}
+    for n in (S // 2, WIDE_E // 2):
+        entry = wrs_case(*testdata.wrs_rows(SMALL, n, n, seed=3), n,
+                         f"{SMALL} rows of {n} + {n}")
+        res.setdefault("wrs_verdicts", entry)   # the line's: 10 + 10
 
     t0 = time.perf_counter()
     seqs, keys, tie = testdata.read_part(reads.READS_CAP, 1 << 22, k=K_E,
@@ -1019,12 +1057,48 @@ def phase_mode_e(tmp: str) -> dict:
         log(f"mode E run {i} ({scorer} scorer): E_wrs {t['E_wrs']:.4f} s, "
             f"E_extract {t['E_extract']:.4f} s = "
             f"{total / t['E_extract']:.0f} reads/s")
+    e_wrs_split(clust, verdicts)
     t = traced["stages"].times
     log(f"mode E traced run (device scorer, under torch.profiler): E_wrs "
         f"{t['E_wrs']:.4f} s, E_extract {t['E_extract']:.4f} s, wall "
         f"{traced_wall:.4f} s, card busy {busy:.4f} s = idle "
         f"{1 - busy / traced_wall:.2%}")
     return out
+
+
+def e_wrs_split(clust: str, verdicts: np.ndarray) -> None:
+    """E_wrs replayed on a clustering file, split by function as the stage
+    runs it: the parse (clusterio.read_cluster_all, its cache cleared), the
+    upload of values and sizes, the kernel (one call between CUDA events)
+    and the pull of the verdicts, which must equal the runs'; then the
+    kernel on these rows against its plain version (wrs_case)."""
+    clusterio._CLUST_CACHE.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values, ids = clusterio.read_cluster_all(clust, S)
+    sizes = np.ascontiguousarray(ids.sizes, np.int32)
+    t1 = time.perf_counter()
+    v = torch.from_numpy(np.ascontiguousarray(values, np.float32)).to(DEV)
+    sz = torch.from_numpy(sizes).to(DEV)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    verdict, _, _ = kernels.wrs_verdicts(v, sz, S // 2, S // 2, 0.01, 5)
+    b.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    pulled = verdict.cpu().numpy()
+    t4 = time.perf_counter()
+    if not np.array_equal(pulled, verdicts):
+        raise AssertionError("mode E: the replayed verdicts differ")
+    log(f"mode E: E_wrs by function on this clustering file: parse "
+        f"{t1 - t0:.4f} s, upload {t2 - t1:.4f} s, kernel "
+        f"{a.elapsed_time(b):.4f} ms of card time ({1e3 * (t3 - t2):.4f} ms "
+        f"with its launch and a synchronize), pull {1e3 * (t4 - t3):.4f} ms;"
+        f" {t4 - t0:.4f} s in all")
+    wrs_case(values, sizes, S // 2, f"phase 6's {len(values)} cluster rows")
 
 
 def device_busy_seconds(trace) -> float:

@@ -41,6 +41,15 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 STAGE_BYTES = 48 * 1024   # the tile a block of K2 or K3 stages, at most
 LSH_PLANES = (4, 8, 12, 16, 20, 24, 28, 30)   # K1b's sign-plane counts
 LSH_RING = 8              # value rows a K1b block keeps in flight
+WRS_WARPS = 4             # warps a K6 block
+WRS_TILES = 4             # 32-row tiles a K6 warp takes of its block's rows,
+                          # at most
+WRS_CHUNK = 124           # columns a K6 warp stages a row, at most
+WRS_BUCKETS = 32          # buckets of x a K6 block sorts each pair's rows by
+WRS_FILL = 1024           # K6 blocks fewer tiles a warp are to leave
+WRS_MIN_BLOCKS = 4        # K6 blocks a SM holds, below which a warp takes
+                          # fewer tiles to fit one more block
+SMEM_SM = 233472          # shared memory of one SM (1 KB of it a block)
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
@@ -453,19 +462,57 @@ def wrs_verdicts_plain(values, sizes, n1: int, n2: int, pval_thresh: float,
     return verdict, left, right
 
 
+def wrs_plan(N: int, S: int, ld: int, base: int) -> dict:
+    """Launch arithmetic of ``wrs_verdicts`` on N rows of S = n1 + n2
+    values at a row stride of ``ld`` floats from address ``base``: each
+    warp stages 32 rows at a stride of ``chunk`` floats (P, the least P ≥ S
+    with P % 8 == 4, so that a lane's float4 reads of its row miss no bank;
+    WRS_CHUNK where P is larger, the row then coming in ``chunks`` pieces,
+    once for each sum), with copies of ``vec`` bytes (16 where ld and the
+    base are 16-byte aligned, else 4), and takes ``tiles`` such tiles (the most, up to WRS_TILES, that
+    leave WRS_FILL blocks and, where a SM holds fewer than WRS_MIN_BLOCKS
+    blocks, no fewer than at one tile); ``blocks`` of ``threads`` take
+    ``tile_rows``
+    rows each, with ``smem`` bytes of shared memory (the step table and
+    constants, each warp's stage and its rows' sizes, the bucket counts,
+    and 15 bytes a row of the block: its x and entry or its tails, its
+    bucket and rank, its place in the sorted order, its verdict)."""
+    if S < 2 or ld < S:
+        raise ValueError(f"wrs_verdicts: S = {S}, ld = {ld}")
+    P = S + (4 - S) % 8
+    chunk = P if P <= WRS_CHUNK else WRS_CHUNK
+
+    def smem(tiles):
+        return (2 * ttest.MAX_ITER * 8 + 64 + WRS_WARPS * 4 * 32 * (chunk + 1)
+                + 8 * WRS_BUCKETS + 15 * 32 * WRS_WARPS * tiles)
+
+    def per_sm(tiles):
+        return SMEM_SM // (smem(tiles) + 1024)
+
+    tiles = max(1, min(WRS_TILES, N // (32 * WRS_WARPS * WRS_FILL)))
+    while tiles > 1 and per_sm(tiles) < min(per_sm(1), WRS_MIN_BLOCKS):
+        tiles -= 1
+    tile_rows = 32 * WRS_WARPS * tiles
+    return dict(chunk=chunk, chunks=-(-S // chunk),
+                vec=16 if ld % 4 == 0 and base % 16 == 0 else 4, tiles=tiles,
+                threads=32 * WRS_WARPS, tile_rows=tile_rows,
+                blocks=-(-N // tile_rows), smem=smem(tiles))
+
+
 def wrs_verdicts(values: torch.Tensor, sizes: torch.Tensor, n1: int, n2: int,
                  pval_thresh: float, size_thresh: int):
     """Cluster rows (values f32 [N, ≥ n1+n2], group A columns first, each
-    row contiguous; sizes int32 [N]) → (verdict int8 [N]: 2 where the left
-    tail ≤ p, else 1 where the right tail ≤ p, else 0, and 0 for sizes ≤
-    size_thresh; left and right tails f32 [N])."""
+    row contiguous; sizes int32 [N], N < 2^31) → (verdict int8 [N]: 2 where
+    the left tail ≤ p, else 1 where the right tail ≤ p, else 0, and 0 for
+    sizes ≤ size_thresh; left and right tails f32 [N])."""
     if not _on_cuda(values, sizes):
         return wrs_verdicts_plain(values, sizes, n1, n2, pval_thresh,
                                   size_thresh)
     _check(values, torch.float32, "values", 2)
     _check(sizes, torch.int32, "sizes")
     N, S = values.shape
-    if n1 < 1 or n2 < 1 or n1 + n2 > S or sizes.shape[0] != N:
+    if (n1 < 1 or n2 < 1 or n1 + n2 > S or sizes.shape[0] != N
+            or N >= 2**31):
         raise ValueError(f"n1 = {n1}, n2 = {n2} for values {tuple(values.shape)}"
                          f" and sizes {tuple(sizes.shape)}")
     dev = values.device
@@ -473,9 +520,12 @@ def wrs_verdicts(values: torch.Tensor, sizes: torch.Tensor, n1: int, n2: int,
     left = torch.empty(N, dtype=torch.float32, device=dev)
     right = torch.empty(N, dtype=torch.float32, device=dev)
     if N:
-        _launch("kl_wrs_verdicts", values.data_ptr(), values.stride(0), N, n1,
-                n2, sizes.data_ptr(), 1.0 / n1 + 1.0 / n2, float(pval_thresh),
-                min(int(size_thresh), 2**31 - 1), verdict.data_ptr(),
+        ld = values.stride(0) if N > 1 else S
+        plan = wrs_plan(N, n1 + n2, ld, values.data_ptr())
+        _launch("kl_wrs_verdicts", values.data_ptr(), ld, N, n1, n2,
+                sizes.data_ptr(), 1.0 / n1 + 1.0 / n2, float(pval_thresh),
+                min(int(size_thresh), 2**31 - 1), plan["chunk"], plan["vec"],
+                plan["tiles"], plan["blocks"], plan["smem"], verdict.data_ptr(),
                 left.data_ptr(), right.data_ptr())
         launches["wrs_verdicts"] += 1
     return verdict, left, right

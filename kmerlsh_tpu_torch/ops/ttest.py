@@ -49,11 +49,14 @@ def _partial_numerator(it: int, a, b, x):
 
 
 def _continued_fraction(a, b, x):
+    """(the fraction's value, the steps each element took)."""
     h = torch.full_like(x, SMALL)    # partial denominator 0 is 0 < small
     c = h.clone()
     d = torch.zeros_like(x)
     active = torch.ones_like(x, dtype=torch.bool)
+    steps = torch.zeros_like(x, dtype=torch.int32)
     for it in range(1, MAX_ITER):
+        steps += active
         pn = _partial_numerator(it, a, b, x)
         cn = 1.0 + pn / c
         cn = torch.where(cn.abs() < SMALL, SMALL, cn)
@@ -66,7 +69,15 @@ def _continued_fraction(a, b, x):
         active &= (delta - 1.0).abs() >= SMALL
         if not bool(active.any()):
             break
-    return h
+    return h, steps
+
+
+def _swap(a, b, x):
+    """XLA's symmetry swap: (rapid, a, b, x), a and b exchanged and x
+    reflected where x ≥ (a+1)/(a+b+2)."""
+    rapid = x < (a + 1.0) / (a + b + 2.0)
+    return (rapid, torch.where(rapid, a, b), torch.where(rapid, b, a),
+            torch.where(rapid, x, 1.0 - x))
 
 
 def betainc(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
@@ -80,10 +91,8 @@ def betainc(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
     res_one = (a_zero & ~x_zero) | (b_zero & x_one)
     res_nan = ((a < 0) | (b < 0) | (x < 0) | (x > 1) | (a_zero & b_zero)
                | a.isnan() | b.isnan() | x.isnan())
-    rapid = x < (a + 1.0) / (a + b + 2.0)
-    a, b = torch.where(rapid, a, b), torch.where(rapid, b, a)
-    x = torch.where(rapid, x, 1.0 - x)
-    cf = _continued_fraction(a, b, x)
+    rapid, a, b, x = _swap(a, b, x)
+    cf, _ = _continued_fraction(a, b, x)
     lbeta_small_a = torch.lgamma(b) - torch.lgamma(a + b)
     lbeta = torch.lgamma(a) + lbeta_small_a
     l1x = torch.log1p(-x)
@@ -113,9 +122,9 @@ def _row_sum(m: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def studentttest2(values: torch.Tensor, n1: int, n2: int):
-    """values f32 [N, ≥ n1+n2] (group A columns first) → (bothtails,
-    lefttail, righttail), each f32 [N]."""
+def _statistic(values: torch.Tensor, n1: int, n2: int):
+    """(x̄, ȳ, ok, the t statistic, df) of each row: ok where s > 0 and
+    df > 0; the statistic is (x̄ − ȳ) / s there."""
     v = values.to(torch.float32)
 
     def f32(c):
@@ -131,13 +140,32 @@ def studentttest2(values: torch.Tensor, n1: int, n2: int):
     df = n1 + n2 - 2
     s = torch.sqrt(ss * (1.0 / n1 + 1.0 / n2) / f32(max(df, 1)))
     ok = (s > 0) & (df > 0)
-    stat = (xm - ym) / torch.where(ok, s, 1.0)
+    return xm, ym, ok, (xm - ym) / torch.where(ok, s, 1.0), df
+
+
+def studentttest2(values: torch.Tensor, n1: int, n2: int):
+    """values f32 [N, ≥ n1+n2] (group A columns first) → (bothtails,
+    lefttail, righttail), each f32 [N]."""
+    xm, ym, ok, stat, df = _statistic(values, n1, n2)
     p = t_cdf(stat, float(df))
     left = torch.where(ok, p, (xm >= ym).to(torch.float32))
     right = torch.where(ok, 1.0 - p, (xm <= ym).to(torch.float32))
     both = torch.where(ok, 2.0 * torch.minimum(p, 1.0 - p),
                        (xm == ym).to(torch.float32))
     return both, left, right
+
+
+def fraction_steps(values: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """int32 [N]: the steps of each row's continued fraction in
+    studentttest2 (0 where s = 0 or df = 0), the work a lane of the
+    ``wrs_verdicts`` kernel spends on the row."""
+    _, _, ok, stat, df = _statistic(values, n1, n2)
+    dff = torch.tensor(float(df), dtype=torch.float32, device=stat.device)
+    x = dff / (dff + stat * stat)
+    a, b, x = torch.broadcast_tensors(dff / 2.0, torch.full_like(x, 0.5), x)
+    _, a, b, x = _swap(a, b, x)
+    _, steps = _continued_fraction(a, b, x)
+    return torch.where(ok, steps, 0)
 
 
 def verdicts_of(left, right, sizes, pval_thresh: float, size_thresh: int):

@@ -262,6 +262,77 @@ def test_wrs_verdicts_matches_plain(dev, n1, n2):
     assert all(torch.equal(a, b) for a, b in zip(kw, k))
 
 
+def _wrs_same(values, sizes, n1, n2):
+    """wrs_verdicts on values (any row view) against the plain version on
+    the same rows: verdicts exact, tails within rtol 1e-5 / atol 1e-6."""
+    got = kernels.wrs_verdicts(values, sizes, n1, n2, 0.01, 5)
+    want = kernels.wrs_verdicts_plain(values.contiguous(), sizes, n1, n2,
+                                      0.01, 5)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    return got
+
+
+def _wrs_views(v):
+    """The row views K6 takes: rows of S + 3 floats (no row 16-byte
+    aligned), rows from the second on (the base moved by a row), and rows
+    whose base is one float past a 16-byte boundary."""
+    N, S = v.shape
+    wide = torch.cat([v, torch.full_like(v[:, :3], 9.0)], dim=1)[:, :S]
+    flat = torch.empty(N * S + 1, dtype=v.dtype, device=v.device)
+    shifted = flat[1:].view(N, S)
+    shifted.copy_(v)
+    return {"wide": wide, "from row 1": v[1:], "one float in": shifted}
+
+
+# n1 + n2 = 2 (df = 0: no row runs the fraction), 3, 20, 100 and 600 (rows
+# staged in five chunks); N at a warp's and a block tile's edges
+@pytest.mark.parametrize("n1,n2", [(1, 1), (1, 2), (10, 10), (50, 50),
+                                   (300, 300)])
+@pytest.mark.parametrize("n", [1, 31, 33, 511, 512, 513, 4101])
+def test_wrs_verdicts_at_every_shape_and_view(dev, n1, n2, n):
+    values, sizes = testdata.wrs_rows(n, n1, n2, seed=n + n1)
+    v = torch.from_numpy(values).to(dev)
+    sz = torch.from_numpy(sizes).to(dev)
+    _wrs_same(v, sz, n1, n2)
+    for name, view in _wrs_views(v).items():
+        rows = sz[1:] if name == "from row 1" else sz
+        _wrs_same(view, rows, n1, n2)
+
+
+@pytest.mark.parametrize("n1,n2", [(10, 10), (50, 50)])
+def test_wrs_verdicts_at_2_20_rows_and_7(dev, n1, n2):
+    values, sizes = testdata.wrs_rows((1 << 20) + 7, n1, n2, seed=n1 + 1)
+    v = torch.from_numpy(values).to(dev)
+    sz = torch.from_numpy(sizes).to(dev)
+    k = _wrs_same(v, sz, n1, n2)
+    assert int((k[0] == 1).sum()) > 1000 and int((k[0] == 2).sum()) > 1000
+    _wrs_same(_wrs_views(v)["wide"], sz, n1, n2)
+
+
+def test_wrs_verdicts_on_the_fractions_edges(dev):
+    """A block tile whose rows all skip the fraction (s = 0), rows that
+    converge at its first tabulated step (t = 0: x reflects to 0), and
+    block tiles of the rows that take the most steps."""
+    from kmerlsh_tpu_torch.ops import ttest
+
+    n1 = n2 = 10
+    values, sizes = testdata.wrs_rows(1 << 16, n1, n2, seed=9)
+    steps = ttest.fraction_steps(torch.from_numpy(values), n1, n2).numpy()
+    slow = values[np.argsort(-steps, kind="stable")[:1024]]
+    flat = np.full((1024, n1 + n2), 4.0, np.float32)          # s = 0
+    even = np.tile(np.concatenate([np.arange(n1) - 4.5, np.arange(n2) - 4.5])
+                   .astype(np.float32), (512, 1))              # t = 0
+    rows = np.concatenate([flat, slow, even, values[:4096]])
+    got_steps = ttest.fraction_steps(torch.from_numpy(rows), n1, n2).numpy()
+    assert (got_steps[:1024] == 0).all() and got_steps[1024] >= 25
+    assert (got_steps[2048:2560] == 2).all()
+    sz = torch.from_numpy(np.resize(sizes, len(rows))).to(dev)
+    k = _wrs_same(torch.from_numpy(rows).to(dev), sz, n1, n2)
+    assert torch.equal(k[1][2048:2560].cpu(), torch.full((512,), 0.5))
+
+
 @pytest.mark.parametrize("k", [15, 31])
 def test_score_reads_matches_plain_and_native(dev, k):
     seqs, keys, tie = testdata.read_part(4096, 1 << 14, k=k, seed=k)

@@ -126,6 +126,183 @@ def test_lsh_plan_refuses_what_shared_memory_cannot_hold():
             kernels.lsh_plan(20, h)
 
 
+# --- K6 wrs_verdicts --------------------------------------------------------
+
+def _wrs_pieces(W: int) -> list[tuple[int, int, int]]:
+    """kl_wrs_kernel's wrs_issue: (lane, row, piece) of every copy a warp
+    makes of 32 rows of W pieces."""
+    out = []
+    for lane in range(32):
+        r, j = divmod(lane, W)
+        while r < 32:
+            out.append((lane, r, j))
+            r, j = r + 32 // W, j + 32 % W
+            if j >= W:
+                r, j = r + 1, j - W
+    return out
+
+
+@pytest.mark.parametrize("W", [1, 3, 5, 25, 31, 32, 33, 124])
+def test_wrs_copies_take_each_piece_once_in_order(W):
+    pieces = _wrs_pieces(W)
+    assert sorted((r, j) for _, r, j in pieces) == [
+        (r, j) for r in range(32) for j in range(W)]
+    # the k-th copy of every lane: 32 consecutive pieces of the span
+    by_lane = [[(r, j) for ln, r, j in pieces if ln == lane]
+               for lane in range(32)]
+    for k in range(len(by_lane[0])):
+        flat = [r * W + j for lane in range(32) if k < len(by_lane[lane])
+                for r, j in [by_lane[lane][k]]]
+        assert flat == list(range(flat[0], flat[0] + len(flat)))
+
+
+@pytest.mark.parametrize("S", [2, 3, 5, 20, 21, 100, 124, 125, 600, 4000])
+def test_wrs_plan_stages_rows_free_of_bank_conflicts(S):
+    plan = kernels.wrs_plan(1 << 20, S, S, 0)
+    chunk = plan["chunk"]
+    assert chunk % 8 == 4 and chunk <= kernels.WRS_CHUNK
+    # each 8-lane phase of a float4 read: lane i at i * chunk floats, eight
+    # distinct groups of four banks
+    assert len({(i * chunk // 4) % 8 for i in range(8)}) == 8
+    if S <= kernels.WRS_CHUNK:   # the whole row: the least such stride
+        assert plan["chunks"] == 1 and S <= chunk < S + 8
+    else:                        # chunks of WRS_CHUNK columns
+        assert plan["chunks"] == -(-S // kernels.WRS_CHUNK) >= 2
+    # the step table and constants, each warp's stage of 32 rows and
+    # sizes, the buckets, and 15 bytes a row of the block
+    assert plan["smem"] == (2 * 200 * 8 + 64 + kernels.WRS_WARPS * 4 * 32
+                            * (chunk + 1) + 8 * kernels.WRS_BUCKETS
+                            + 15 * plan["tile_rows"])
+    assert plan["smem"] <= kernels.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ld,base,vec", [(20, 0, 16), (20, 80, 16),
+                                         (20, 4, 4), (23, 0, 4), (24, 48, 16),
+                                         (3, 0, 4), (3, 12, 4)])
+def test_wrs_plan_copies_16_bytes_only_where_aligned(ld, base, vec):
+    S = min(ld, 20)
+    assert kernels.wrs_plan(1000, S, ld, base)["vec"] == vec
+
+
+@pytest.mark.parametrize("N,tiles", [(1, 1), (31, 1), (33, 1), (511, 1),
+                                     (131072, 1), (262144, 2), (393216, 3),
+                                     (1 << 20, 4), ((1 << 20) + 7, 4)])
+def test_wrs_plan_blocks_cover_the_rows(N, tiles):
+    plan = kernels.wrs_plan(N, 20, 20, 0)
+    rows = plan["tile_rows"]
+    # the most tiles a warp that leave WRS_FILL blocks (or one a warp)
+    assert plan["tiles"] == tiles and rows == 32 * kernels.WRS_WARPS * tiles
+    assert plan["blocks"] >= kernels.WRS_FILL or tiles == 1
+    assert plan["threads"] == 32 * kernels.WRS_WARPS
+    # block b, warp w takes the 32-row tiles b rows + 32 (w + 4 i), i <
+    # tiles: together every row once; a row's offset in its block fits the
+    # entry's nine bits
+    taken = sorted(b * rows + 32 * (w + kernels.WRS_WARPS * i) + lane
+                   for b in range(min(plan["blocks"], 64))
+                   for w in range(kernels.WRS_WARPS)
+                   for i in range(tiles) for lane in range(32))
+    assert taken == list(range(min(plan["blocks"], 64) * rows))
+    assert (plan["blocks"] - 1) * rows < N <= plan["blocks"] * rows
+    assert rows <= 512
+
+
+@pytest.mark.parametrize("S,tiles", [(20, 4), (100, 1), (124, 4), (125, 4),
+                                     (600, 4)])
+def test_wrs_plan_keeps_the_blocks_a_sm_holds(S, tiles):
+    """At 2^20 rows a warp takes four tiles, but fewer where the rows'
+    share of shared memory would cost a block of the SM's few."""
+    plan = kernels.wrs_plan(1 << 20, S, S, 0)
+    assert plan["tiles"] == tiles
+    one = kernels.wrs_plan(1 << 17, S, S, 0)
+    assert one["tiles"] == 1
+
+    def per_sm(p):
+        return kernels.SMEM_SM // (p["smem"] + 1024)
+
+    assert per_sm(plan) >= min(per_sm(one), kernels.WRS_MIN_BLOCKS)
+
+
+def _wrs_block_order(ok, xx, rapid, thr, tiles):
+    """kl_wrs_kernel's phases 1 and 2 for one block: a rank in its bucket
+    for each row that needs the fraction (the atomics in tile, then lane
+    order), the scan of the bucket counts and the scatter of the rows'
+    offsets into the sorted order."""
+    K = kernels.WRS_BUCKETS
+    bucket = np.zeros(2 * K, np.int64)
+    rank = np.full(len(ok), -1, np.int64)
+    keys = np.zeros(len(ok), np.int64)
+    for i in range(tiles):
+        for w in range(kernels.WRS_WARPS):
+            for lane in range(32):
+                off = 32 * (w + kernels.WRS_WARPS * i) + lane
+                if off >= len(ok) or not ok[off]:
+                    continue
+                u = xx[off] / (thr if rapid[off] else 1 - thr)
+                keys[off] = (0 if rapid[off] else K) + min(K - 1,
+                                                            max(0, int(u * K)))
+                rank[off] = bucket[keys[off]]
+                bucket[keys[off]] += 1
+    start = np.cumsum(bucket) - bucket          # the warp's scan
+    order = np.full(int(bucket.sum()), -1, np.int64)
+    for off in np.flatnonzero(rank >= 0):
+        order[start[keys[off]] + rank[off]] = off
+    return order, keys
+
+
+@pytest.mark.parametrize("n,tiles", [(512, 4), (128, 1), (300, 4)])
+def test_wrs_block_sort_orders_rows_by_bucket(n, tiles):
+    """Each row that needs the fraction takes one place in the sorted order,
+    the order runs through the buckets, and a warp's 32 rows in it then
+    take fewer steps at their slowest than 32 rows in their own order."""
+    from kmerlsh_tpu_torch.ops import ttest
+
+    values, _ = testdata.wrs_rows(n, 10, 10, seed=n)
+    v = torch.from_numpy(values)
+    _, _, ok, stat, df = ttest._statistic(v, 10, 10)
+    steps = ttest.fraction_steps(v, 10, 10).numpy()
+    t = stat.numpy()
+    x = np.float32(df) / (np.float32(df) + t * t)
+    a = np.float32(df) / np.float32(2)
+    thr = (a + np.float32(1)) / (a + np.float32(0.5) + np.float32(2))
+    rapid = x < thr
+    xx = np.where(rapid, x, np.float32(1) - x)
+    order, keys = _wrs_block_order(ok.numpy(), xx, rapid, thr, tiles)
+    assert sorted(order) == np.flatnonzero(ok.numpy()).tolist()
+    assert (np.diff(keys[order]) >= 0).all()
+
+    def slowest(s):   # a warp's slowest row, on average over the warps
+        return np.mean([s[i:i + 32].max() for i in range(0, len(s), 32)])
+
+    assert slowest(steps[order]) < slowest(steps[np.flatnonzero(ok.numpy())])
+
+
+def test_wrs_plan_follows_the_source():
+    import re
+
+    from kmerlsh_tpu_torch.kernels import build
+    from kmerlsh_tpu_torch.ops import ttest
+
+    src = (build.CSRC / "ttest.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWarps") == kernels.WRS_WARPS
+    assert const("kMaxTiles") == kernels.WRS_TILES
+    assert const("kBuckets") == kernels.WRS_BUCKETS
+    assert const("kChunk") == kernels.WRS_CHUNK
+    assert const("kMaxIter") == ttest.MAX_ITER
+    assert const("kSmemLimit") == kernels.SMEM_LIMIT
+    # the C entry point's stride rule: the least P >= S with P % 8 == 4
+    assert "S + (12 - S % 8) % 8" in src
+    for S in range(2, 200):
+        assert (S + (12 - S % 8) % 8) == min(
+            p for p in range(S, S + 8) if p % 8 == 4)
+    for S, ld in ((1, 1), (20, 19)):
+        with pytest.raises(ValueError):
+            kernels.wrs_plan(10, S, ld, 0)
+
+
 # --- K5 finalize ------------------------------------------------------------
 
 def _finalize_steps(values_t, sizes, slots, parent):

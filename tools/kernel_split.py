@@ -6,6 +6,7 @@ mode-C session's bytes a row.
     python3 tools/kernel_split.py reads
     python3 tools/kernel_split.py exchange [c ...]   (default 2^20 and 2^22)
     python3 tools/kernel_split.py memory
+    python3 tools/kernel_split.py wrs
 
 It runs whichever ``kmerlsh_tpu_torch`` comes first on the path, so that
 two trees can be compared on one card in one session: put a tree's root
@@ -25,12 +26,21 @@ directory bits (the kernel's masks equal the plain version's at each).
 testdata.exchange_inputs): exchange_window, exchange_fold, and
 chain_collapse at the rank's base as the tree's sharded iteration calls it
 (with the local fold where the tree folds there, and without), and the sum
-of one exchange's chain_collapse and exchange_fold. ``memory`` runs the
-engine's ``cluster_counts`` at 2^16 to 2^24 columns of
-20 samples, on uniform random counts and on counts with the distribution of
-bench.py make_data, with 3 and with 21 iterations, and prints each
-session's peak of allocated memory above what was allocated before it,
-over its columns, and the growth from the session of half its columns,
+of one exchange's chain_collapse and exchange_fold. ``wrs`` times
+wrs_verdicts (checked against its plain version: verdicts exact, tails
+within rtol 1e-5 / atol 1e-6) on testdata.wrs_rows at 2^20 x (10 + 10)
+and 2^20 x (50 + 50) (chip_smoke.py phase 3's rows), at 2^18 x (300 +
+300), and on the cluster rows of chip_smoke.py phase 6's clustering (its
+count matrix remade from the same seeds, clustered by mode C through the
+CLI, read back as mode E reads it), with the continued fraction's steps
+where the tree counts them (``ttest.fraction_steps``): the mean a row, the
+mean of the slowest row of each 32 consecutive rows, and that of each
+warp's 32 rows after each block's sort by bucket of x. ``memory`` runs the
+engine's ``cluster_counts`` at 2^16 to 2^24 columns of 20 samples, on
+uniform random counts and on counts with the distribution of bench.py
+make_data, with 3 and with 21 iterations, and prints each session's peak
+of allocated memory above what was allocated before it, over its columns,
+and the growth from the session of half its columns,
 beside ``utils/hbm.measure_per_row_bytes``.
 """
 
@@ -38,6 +48,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import time
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -48,8 +59,10 @@ import chip_smoke as cs  # noqa: E402  (exits where there is no card)
 
 torch = cs.torch
 from kmerlsh_tpu_torch import kernels, testdata  # noqa: E402
+from kmerlsh_tpu_torch.cli import main as cli_main  # noqa: E402
 from kmerlsh_tpu_torch.cluster import engine  # noqa: E402
-from kmerlsh_tpu_torch.ops import reads, rng  # noqa: E402
+from kmerlsh_tpu_torch.io import clusterio  # noqa: E402
+from kmerlsh_tpu_torch.ops import reads, rng, ttest  # noqa: E402
 from kmerlsh_tpu_torch.utils import hbm  # noqa: E402
 
 SCHEDULES = {
@@ -197,6 +210,91 @@ def measure_exchange(c: int) -> None:
            f"{k3 + fold:.4f} ms")
 
 
+def phase6_rows() -> tuple[np.ndarray, np.ndarray]:
+    """The cluster rows and sizes of chip_smoke.py phase 6's clustering:
+    its 2^24 x 20 count matrix made from the same seeds (the k-mers of
+    random 150-bp sources, one abundance profile a source, 3% shifted up in
+    each group), clustered by mode C through the CLI (-K 31 -I 20 -N 0.8
+    --seed 0) and read back as mode E reads it."""
+    S, n_w = cs.S, cs.READ_LEN - cs.K_E + 1
+    r = np.random.default_rng(7)
+    n_src = -(-cs.FULL // n_w)
+    r.integers(0, 4, size=(n_src, cs.READ_LEN), dtype=np.uint8)  # sources
+    pool = testdata.profile_pool(r, max(64, cs.FULL >> 7), S)
+    prof = pool[r.integers(0, len(pool), size=n_src)]
+    kind = r.random(n_src)
+    prof[kind < 0.03, :S // 2] += 0.6
+    prof[(kind >= 0.03) & (kind < 0.06), S // 2:] += 0.6
+    g = torch.Generator(device=cs.DEV).manual_seed(7)
+    rows = torch.arange(cs.FULL, device=cs.DEV) // n_w
+    counts = cs.counts_of(torch.from_numpy(prof.T.copy()).to(cs.DEV), rows, g)
+    with tempfile.TemporaryDirectory() as tmp:
+        cs.write_matrix(tmp, counts)
+        del counts
+        clust = os.path.join(tmp, "result.txt")
+        cli_main(["-a", os.path.join(tmp, "l1"), "-b", os.path.join(tmp, "l2"),
+                  "--only", "-M", "C", "-I", "20", "-N", "0.8", "--seed", "0",
+                  "-K", str(cs.K_E), "--work-dir", tmp, "-F", clust, "-D",
+                  os.path.join(tmp, "tmp")])
+        values, ids = clusterio.read_cluster_all(clust, S)
+    return values, ids.sizes.astype(np.int32)
+
+
+def sorted_warp_steps(v: torch.Tensor, n: int, steps: torch.Tensor) -> float:
+    """The mean over warps of their slowest row's steps when, as in
+    csrc/ttest.cu, each block's rows that need the fraction are sorted by
+    the bucket of their x (kernels.WRS_BUCKETS a pair) and each warp takes
+    32 of them in that order (the block's rows as kernels.wrs_plan gives
+    them)."""
+    _, _, ok, stat, df = ttest._statistic(v, n, n)
+    x = df / (df + stat * stat)
+    a = df / 2.0
+    thr = (a + 1.0) / (a + 0.5 + 2.0)
+    rapid = x < thr
+    xx = torch.where(rapid, x, 1.0 - x)
+    K = kernels.WRS_BUCKETS
+    u = xx / torch.where(rapid, thr, 1.0 - thr)
+    key = (torch.where(rapid, 0, K)
+           + torch.clamp((u * K).to(torch.int64), 0, K - 1))
+    rows = kernels.wrs_plan(len(v), 2 * n, 2 * n, 0)["tile_rows"]
+    idx = torch.nonzero(ok).flatten()
+    block = idx // rows
+    order = torch.argsort(block * 2 * K + key[idx], stable=True)
+    block, s = block[order], steps[idx[order]]
+    first = torch.searchsorted(block, block)   # the block's first entry
+    batch = block * (rows // 32) + (torch.arange(len(s), device=s.device)
+                                    - first) // 32
+    most = torch.zeros(int(batch.max()) + 1, dtype=s.dtype, device=s.device)
+    most.scatter_reduce_(0, batch, s, "amax")
+    return float(most[torch.unique(batch)].double().mean())
+
+
+def measure_wrs() -> None:
+    cases = [(f"{N} rows of {n} + {n}", *testdata.wrs_rows(N, n, n, seed=3), n)
+             for N, n in ((cs.SMALL, cs.S // 2), (cs.SMALL, 50),
+                          (cs.SMALL >> 2, 300))]
+    cases.append(("phase 6's clusters", *phase6_rows(), cs.S // 2))
+    for what, values, sizes, n in cases:
+        v = torch.from_numpy(values).to(cs.DEV)
+        sz = torch.from_numpy(sizes).to(cs.DEV)
+        args = (v, sz, n, n, 0.01, 5)
+        k = kernels.wrs_verdicts(*args)
+        p = kernels.wrs_verdicts_plain(*args)
+        if not torch.equal(k[0], p[0]):
+            raise AssertionError(f"wrs_verdicts on {what}: verdicts differ")
+        for a, b in zip(k[1:], p[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        report(f"wrs_verdicts on {what}", len(values),
+               lambda: kernels.wrs_verdicts(*args))
+        if hasattr(ttest, "fraction_steps"):   # not in older trees
+            steps = ttest.fraction_steps(v, n, n)
+            cs.log(f"wrs_verdicts on {what}: " + cs.step_stats(steps)
+                   + "; sorted by bucket in each block, the slowest of a "
+                   f"warp's rows {sorted_warp_steps(v, n, steps):.3f} on "
+                   "average")
+        del v, sz, k, p
+
+
 def session_peak(counts, v, thr) -> int:
     torch.cuda.synchronize(cs.DEV)
     base = torch.cuda.memory_allocated(cs.DEV)
@@ -235,8 +333,9 @@ def measure_memory() -> None:
 
 def main() -> None:
     cs.log(f"kmerlsh_tpu_torch from {os.path.dirname(kernels.__file__)}")
-    if sys.argv[1:] in (["reads"], ["memory"]):
-        {"reads": measure_reads, "memory": measure_memory}[sys.argv[1]]()
+    if sys.argv[1:] in (["reads"], ["memory"], ["wrs"]):
+        {"reads": measure_reads, "memory": measure_memory,
+         "wrs": measure_wrs}[sys.argv[1]]()
         return
     if sys.argv[1:2] == ["exchange"]:
         for c in [int(a) for a in sys.argv[2:]] or [1 << 20, 1 << 22]:

@@ -4,6 +4,7 @@ card, in one process.
 
     python3 tools/kernel_variants.py
     python3 tools/kernel_variants.py fold
+    python3 tools/kernel_variants.py wrs [PARENT_ROOT]
 
 Each variant is a list of substitutions in ``kmerlsh_tpu_torch/csrc``; the
 sources of every variant are compiled with the flags of
@@ -55,6 +56,44 @@ merged_into and the parent shard checked equal to the plain version's):
   no-int-streams the int columns with the default policy;
   parent-last    the parent entries' policy alone;
   values-first   the values' policy alone.
+
+``wrs`` times the t-test kernel (wrs_verdicts) on testdata.wrs_rows at
+2^20 x (10 + 10) and 2^20 x (50 + 50), two rounds alternating; each
+variant is ttest.cu alone in a library of its own, and its outputs are
+checked against the plain version (verdicts exact, tails within rtol 1e-5 /
+atol 1e-6). The variants of the committed source (WRS_VARIANTS; one whose
+text the source does not hold is left out):
+
+  committed          the sources as they are;
+  no-table           each step's partial numerator computed from the row's
+                     pair and the step, not read from the table;
+  lgamma-a-row       the lgamma terms computed in each row's tail;
+  copy-4             4-byte copies where 16-byte ones would do;
+  no-fraction        no step after the first tabulated one;
+  no-copies          no copy after a warp's first tile (the sums read it
+                     again);
+  no-sort            the rows that need the fraction left in their order;
+  bounds-12          at most 40 registers a thread (12 blocks a SM);
+  fast-div           the approximate division and square root everywhere;
+  no-logs            the tail's logarithms and exponential left out;
+  groups-in-order    group B's columns summed after group A's;
+
+and the committed source on plans of one and two tiles
+a warp (smaller blocks, sorted in smaller groups), with the blocks a SM
+holds of each library's kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+and, given PARENT_ROOT, a tree
+whose ttest.cu is the one-thread-a-row kernel of the parent (called with
+its own entry point's arguments), that kernel and PARENT_WRS_VARIANTS:
+
+  parent             the parent's kernel as it is;
+  parent-no-fraction its continued fraction run for no step (the loads,
+                     sums, prologue and tail alone);
+  parent-no-loads    its values made from the row and column index instead
+                     of loaded (the arithmetic alone; other rows, so other
+                     step counts);
+  parent-one-pass    the sums of squares from one pass over the values
+                     (Σv² − x̄Σv: not the plain version's rounding), so each
+                     value is loaded once.
 
 A variant that does not compile is reported and left out.
 """
@@ -413,6 +452,139 @@ FOLD_VARIANTS = {
 }
 
 
+SUMS = """  float xs = 0.0f, ys = 0.0f;
+  for (int j = 0; j < n1; ++j) xs = __fadd_rn(xs, v[j]);
+  for (int j = 0; j < n2; ++j) ys = __fadd_rn(ys, v[n1 + j]);
+  const float xm = __fdiv_rn(xs, (float)n1);
+  const float ym = __fdiv_rn(ys, (float)n2);
+  float ssx = 0.0f, ssy = 0.0f;
+  for (int j = 0; j < n1; ++j) {
+    const float e = __fsub_rn(v[j], xm);
+    ssx = __fadd_rn(ssx, __fmul_rn(e, e));
+  }
+  for (int j = 0; j < n2; ++j) {
+    const float e = __fsub_rn(v[n1 + j], ym);
+    ssy = __fadd_rn(ssy, __fmul_rn(e, e));
+  }
+"""
+PARENT_WRS_VARIANTS = {
+    "parent": [],
+    "parent-no-fraction": [
+        ("ttest.cu", "for (int it = 1; it < kMaxIter; ++it) {",
+         "for (int it = 1; it < 1; ++it) {")],
+    "parent-no-loads": [
+        ("ttest.cu", "const float* v = values + row * ld;",
+         "const unsigned hv = (unsigned)row * 2654435761u;\n"
+         "#define KL_V(j) __uint_as_float(\\\n"
+         "    0x40800000u | ((hv ^ ((unsigned)(j) * 2246822519u)) >> 11))"),
+        ("ttest.cu", "v[n1 + j]", "KL_V(n1 + j)"),
+        ("ttest.cu", "v[j]", "KL_V(j)")],
+    "parent-one-pass": [("ttest.cu", SUMS, """\
+  float xs = 0.0f, ys = 0.0f, qx = 0.0f, qy = 0.0f;
+  for (int j = 0; j < n1; ++j) {
+    const float w = v[j];
+    xs = __fadd_rn(xs, w);
+    qx = __fadd_rn(qx, __fmul_rn(w, w));
+  }
+  for (int j = 0; j < n2; ++j) {
+    const float w = v[n1 + j];
+    ys = __fadd_rn(ys, w);
+    qy = __fadd_rn(qy, __fmul_rn(w, w));
+  }
+  const float xm = __fdiv_rn(xs, (float)n1);
+  const float ym = __fdiv_rn(ys, (float)n2);
+  const float ssx = fmaxf(__fsub_rn(qx, __fmul_rn(xs, xm)), 0.0f);
+  const float ssy = fmaxf(__fsub_rn(qy, __fmul_rn(ys, ym)), 0.0f);
+""")],
+}
+# the parent's entry point: no launch plan
+PARENT_WRS_SIGNATURE = (build._P, build._L, build._L, build._I, build._I,
+                        build._P, build._F, build._F, build._I, build._P,
+                        build._P, build._P, build._P)
+PN_OF_ROW = """\
+__device__ float kl_partial_numerator(int it, float a, float b, float x) {
+  const int mi = (it - 1) / 2;
+  const float m = (float)mi;
+  const float a2m = __fadd_rn(a, __fmul_rn(2.0f, m));
+  if ((it & 1) == 0) {
+    if (mi == 0)
+      return __fdiv_rn(__fmul_rn(-__fadd_rn(a, b), x), __fadd_rn(a, 1.0f));
+    const float num = __fmul_rn(
+        __fmul_rn(-__fadd_rn(a, m), __fadd_rn(__fadd_rn(a, b), m)), x);
+    return __fdiv_rn(num, __fmul_rn(a2m, __fadd_rn(a2m, 1.0f)));
+  }
+  const float num = __fmul_rn(__fmul_rn(m, __fsub_rn(b, m)), x);
+  return __fdiv_rn(num, __fmul_rn(__fsub_rn(a2m, 1.0f), a2m));
+}
+
+__global__ void"""
+WRS_VARIANTS: dict[str, list] = {
+    "committed": [],
+    # each step's partial numerator from (aa, bb, it) as the parent did
+    "no-table": [
+        ("ttest.cu", "__global__ void", PN_OF_ROW),
+        ("ttest.cu", """      const float2 cd = steps[it];
+      const float pn = __fdiv_rn(__fmul_rn(cd.x, xx), cd.y);""",
+         """      const int pair = rapid ? 0 : 1;
+      const float pn = kl_partial_numerator(it, k.aa[pair], k.bb[pair], xx);""")],
+    # the lgamma terms of each row's pair in its tail, as the parent did
+    "lgamma-a-row": [
+        ("ttest.cu", "  const float l1x = log1pf(-xx);",
+         "  const float lbsa = __fsub_rn(lgammaf(bb), lgammaf(__fadd_rn(aa, "
+         "bb)));\n  const float lbeta = __fadd_rn(lgammaf(aa), lbsa);\n"
+         "  const float l1x = log1pf(-xx);"),
+        ("ttest.cu", "k.lbeta_small_a[pair]))", "lbsa))"),
+        ("ttest.cu", "k.lbeta[pair])),", "lbeta)),")],
+    # 4-byte copies where 16-byte ones would do
+    "copy-4": [("ttest.cu", "  auto issue = [&](long long row0, int j) {",
+                "  vec = 4;\n  auto issue = [&](long long row0, int j) {")],
+    # no step after the first tabulated one (not the plain version's tails)
+    "no-fraction": [("ttest.cu",
+                     "if (!(fabsf(__fsub_rn(delta, 1.0f)) >= kSmall)) break;",
+                     "break;")],
+    # a warp's first tile staged, no copy after it (other rows' values)
+    "no-copies": [("ttest.cu",
+                   "const bool more = i + 1 < tiles && next < N;",
+                   "const bool more = false;")],
+    # the rows left in their order: one bucket
+    "no-sort": [("ttest.cu",
+                 "rank[off] = key << 16 | atomicAdd(bucket + key, 1);",
+                 "rank[off] = atomicAdd(bucket, 1);")],
+    # at most 40 registers a thread: 12 blocks a SM
+    "bounds-12": [("ttest.cu", "__launch_bounds__(32 * kWarps)",
+                   "__launch_bounds__(32 * kWarps, 12)")],
+    # every division and square root the approximate one (not the plain
+    # version's rounding: what the IEEE sequences cost)
+    "fast-div": [("ttest.cu", "__fdiv_rn(", "__fdividef("),
+                 ("ttest.cu", "__fsqrt_rn(", "sqrtf(")],
+    # the tail's logarithms and exponential left out
+    "no-logs": [("ttest.cu", """  const float l1x = log1pf(-xx);
+  const float factor =
+      aa < kVerySmall""", """  const float l1x = -xx;
+  const float factor = 1.0f;
+  if (false) (void)(
+      aa < kVerySmall"""),
+                ("ttest.cu", """                      aa);
+  float r = __fmul_rn(h, factor);""", """                      aa));
+  float r = __fmul_rn(h, factor);""")],
+    # group B's columns summed after group A's, not in turns with them
+    "groups-in-order": [("ttest.cu", "    if (qb < qb_end) {",
+                         "    if (qa >= qa_end && qb < qb_end) {")],
+}
+# the blocks a SM holds of the library's kl_wrs_kernel (a tool's entry
+# point appended to every variant)
+OCCUPANCY = """
+KL_EXPORT int kl_wrs_occupancy(int threads, int smem) {
+  int n = 0;
+  cudaFuncSetAttribute(kl_wrs_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kl_wrs_kernel, threads,
+                                                smem);
+  return n;
+}
+"""
+
+
 def build_variants(variants: dict = VARIANTS) -> dict[str, ctypes.CDLL]:
     """One library per variant; the sources no variant changes compile
     once."""
@@ -531,9 +703,133 @@ def main_fold() -> None:
     build._lib = None
 
 
+def build_wrs(csrc, variants: dict, tag: str) -> dict[str, ctypes.CDLL]:
+    """One library a variant of csrc/ttest.cu, built alone; a variant whose
+    text the source does not hold, or that does not compile, is left
+    out."""
+    base = (csrc / "ttest.cu").read_text()
+    work = WORK / tag
+    work.mkdir(parents=True, exist_ok=True)
+    shutil.copy(csrc / "common.cuh", work)
+    jobs = {}
+    for name, subs in variants.items():
+        text = base
+        for _, old, new in subs:
+            if old not in text:
+                cs.log(f"variant {name} left out: {old[:60]!r} not in "
+                       f"{csrc / 'ttest.cu'}")
+                break
+            text = text.replace(old, new)
+        else:
+            src = work / f"{name}.cu"
+            src.write_text(text + OCCUPANCY)
+            jobs[name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                 str(work / f"lib_{name}.so"), str(src)],
+                stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, job in jobs.items():
+        _, err = job.communicate()
+        if job.returncode:
+            cs.log(f"variant {name} left out: nvcc failed:\n{err[-2000:]}")
+        else:
+            libs[name] = ctypes.CDLL(str(work / f"lib_{name}.so"))
+    return libs
+
+
+def parent_wrs(lib: ctypes.CDLL):
+    """wrs_verdicts through the parent's entry point in lib."""
+    fn = lib.kl_wrs_verdicts
+    fn.argtypes, fn.restype = PARENT_WRS_SIGNATURE, ctypes.c_int
+
+    def call(v, sz, n1, n2, pval, size_thresh):
+        N = v.shape[0]
+        verdict = torch.empty(N, dtype=torch.int8, device=v.device)
+        left = torch.empty(N, dtype=torch.float32, device=v.device)
+        right = torch.empty(N, dtype=torch.float32, device=v.device)
+        err = fn(v.data_ptr(), v.stride(0), N, n1, n2, sz.data_ptr(),
+                 1.0 / n1 + 1.0 / n2, pval, size_thresh, verdict.data_ptr(),
+                 left.data_ptr(), right.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"kl_wrs_verdicts: CUDA error {err}")
+        return verdict, left, right
+
+    return call
+
+
+def committed_wrs(lib: ctypes.CDLL, tiles: int | None = None):
+    """kernels.wrs_verdicts on the library lib (with tiles, on plans of that
+    many tiles a warp)."""
+    fn = lib.kl_wrs_verdicts
+    fn.argtypes = build.SIGNATURES["kl_wrs_verdicts"]
+    fn.restype = ctypes.c_int
+    plan_of = kernels.wrs_plan
+
+    def one(N, *args):
+        plan = plan_of(N, *args)
+        if tiles:
+            plan["smem"] += 15 * 32 * kernels.WRS_WARPS * (tiles
+                                                            - plan["tiles"])
+            plan["tiles"], plan["tile_rows"] = tiles, 32 * kernels.WRS_WARPS * tiles
+            plan["blocks"] = -(-N // plan["tile_rows"])
+        return plan
+
+    def call(*args):
+        build._lib = lib
+        kernels.wrs_plan = one
+        try:
+            return kernels.wrs_verdicts(*args)
+        finally:
+            kernels.wrs_plan = plan_of
+
+    return call
+
+
+def main_wrs(parent: str | None) -> None:
+    from pathlib import Path
+
+    from kmerlsh_tpu_torch import testdata
+
+    libs = build_wrs(build.CSRC, WRS_VARIANTS, "wrs")
+    calls = {name: committed_wrs(lib) for name, lib in libs.items()}
+    if "committed" in libs:
+        for t in (1, 2):
+            calls[f"committed, {t} tiles a warp"] = committed_wrs(
+                libs["committed"], tiles=t)
+    if parent:
+        csrc = Path(parent).resolve() / "kmerlsh_tpu_torch" / "csrc"
+        calls.update({name: parent_wrs(lib) for name, lib in build_wrs(
+            csrc, PARENT_WRS_VARIANTS, "wrs_parent").items()})
+    for n in (cs.S // 2, 50):
+        if hasattr(kernels, "wrs_plan"):
+            plan = kernels.wrs_plan(cs.SMALL, 2 * n, 2 * n, 0)
+            cs.log(f"at {cs.SMALL} x ({n} + {n}): plan {plan}; blocks a SM "
+                   + ", ".join(
+                       f"{name} {lib.kl_wrs_occupancy(plan['threads'], plan['smem'])}"
+                       for name, lib in libs.items()))
+        values, sizes = testdata.wrs_rows(cs.SMALL, n, n, seed=3)
+        args = (torch.from_numpy(values).to(cs.DEV),
+                torch.from_numpy(sizes).to(cs.DEV), n, n, 0.01, 5)
+        want = kernels.wrs_verdicts_plain(*args)
+        for rnd in range(2):
+            for name, fn in calls.items():
+                got = fn(*args)
+                exact = torch.equal(got[0], want[0]) and all(
+                    torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                    for a, b in zip(got[1:], want[1:]))
+                cs.log(f"variant {name} at {cs.SMALL} x ({n} + {n}), round "
+                       f"{rnd}: wrs_verdicts {cs.cuda_ms(lambda: fn(*args)):.4f}"
+                       f" ms (equal to the plain version: {exact})")
+    build._lib = None
+
+
 def main() -> None:
     if sys.argv[1:] == ["fold"]:
         main_fold()
+        return
+    if sys.argv[1:2] == ["wrs"]:
+        main_wrs(sys.argv[2] if len(sys.argv) > 2 else None)
         return
     libs = build_variants()
     for M in (cs.LATE, cs.FULL):
