@@ -70,7 +70,19 @@ Phases:
      launched both exchange kernels (and the t-test kernel in mode E), the
      sharded verdicts equal phase 6's bit for bit and the extracted FASTQs
      equal phase 6's byte for byte;
-  8. the kernels line, the card line, and the result line last.
+  7b. sharded out of core: phase 5b's run (phase 5's matrix at
+     --batch-thresh 2^22) on the same four ranks, so that each batch pass
+     shards 2^22 rows into four shards of 2^20 and the merge rounds and
+     the final anneal run sharded too. Every rank launched the five mode-C
+     kernels and both exchange kernels and counted the same clusters after
+     every round (at least one merge round); rank 0 alone wrote, only the
+     last round's two files remain, its clustering passes phase 5b's checks
+     and its cluster count lies below phase 5b's + 15% (the terminal
+     rounds that end each sharded batch pass, COUNT_BOUND). Each rank's
+     wall is logged with its split (regroup, save_tmp, read_tmp, device,
+     pulls), the count beside phase 5b's and phase 7's;
+  8. the kernels line, the card line, and the result line last; each
+     phase's wall is logged as it ends.
 
 Any failed check raises, and the script exits non-zero without a result. It
 exits non-zero at once where torch sees no CUDA device.
@@ -825,13 +837,13 @@ def phase_full(tmp: str) -> dict:
                 argv=argv, session_peak=session_peak)
 
 
-def phase_out_of_core(full: dict, tmp: str) -> None:
+def phase_out_of_core(full: dict, tmp: str) -> dict:
     """Phase 5's matrix out of core through the CLI: --batch-thresh
     OOC_BATCH gives four batch passes, then merge rounds and the final
     anneal; the result checked as phase 5's, its count beside phase 5's.
     Then the bytes a row of a session, measured on the card, held against
     the peak of phase 5's cold session over its rows, and the batch budget
-    at S and 400 samples."""
+    at S and 400 samples. Returns the run's cluster counts (all, saved)."""
     argv = list(full["argv"])
     clust = os.path.join(tmp, "ooc_result.txt")
     argv[argv.index("-F") + 1] = clust
@@ -879,6 +891,7 @@ def phase_out_of_core(full: dict, tmp: str) -> None:
             f" (static), {hbm.rows_budget(s, kmap_size=n, device=DEV)} for "
             f"{n} rows (measured: {hbm.cached_per_row_bytes(s, DEV)} bytes a "
             f"row) of the card's {mem} bytes")
+    return dict(clusters=clusters, saved=saved)
 
 
 def kernel_group(name: str) -> str:
@@ -1116,9 +1129,10 @@ def device_busy_seconds(trace) -> float:
     return busy * 1e-6
 
 
-# One rank of phase 7: the CLI as a user runs it, then this rank's kernel
-# launches, session split, wall and peak device memory to <out>.json and
-# its mode-E verdicts to <out>.npy.
+# One rank of phases 7 and 7b: the CLI as a user runs it, then this rank's
+# kernel launches, session split, stages, tmp rounds, the files it wrote
+# through clusterio, wall and peak device memory to <out>.json and its
+# mode-E verdicts to <out>.npy.
 RANK_MAIN = r"""
 import json, sys, time
 import numpy as np
@@ -1126,9 +1140,24 @@ import torch
 from kmerlsh_tpu_torch import kernels, pipeline
 from kmerlsh_tpu_torch.cli import main
 from kmerlsh_tpu_torch.cluster import engine
+from kmerlsh_tpu_torch.io import clusterio
 from kmerlsh_tpu_torch.parallel import dist
 
 out, argv = sys.argv[1], sys.argv[2:]
+writes = []
+
+
+def recorded(name):
+    fn = getattr(clusterio, name)
+
+    def wrapper(*a, **kw):
+        writes.append(name)
+        return fn(*a, **kw)
+    setattr(clusterio, name, wrapper)
+
+
+recorded("save_result")
+recorded("save_binary")
 kernels.reset_launches()
 t0 = time.perf_counter()
 main(argv)
@@ -1143,6 +1172,9 @@ rec = dict(wall=wall, launches=dict(kernels.launches),
            stages={k: round(v, 4)
                    for k, v in pipeline.LAST_STAGES.times.items()},
            tail=sess.get("tail"), clusters=engine.LAST_SESSION.get("clusters"),
+           tmp_rounds=pipeline.LAST_STAGES.metrics.get("tmp_rounds"),
+           tmp_bytes=pipeline.LAST_STAGES.metrics.get("tmp_bytes"),
+           writes=len(writes),
            foreign=sorted(n for n in sys.modules if n.split(".")[0]
                           in ("jax", "jaxlib", "kmerlsh_tpu")))
 if pipeline.LAST_VERDICTS is not None:
@@ -1261,7 +1293,69 @@ def phase_sharded(full: dict, full_dir: str, mode_e: dict,
     log(f"sharded E: {len(want)} verdicts of every rank equal one "
         f"process's; {n} extracted reads byte-identical")
     return dict(launches={k: sum(rec["launches"][k] for rec in recs)
-                          for k in EXCHANGE})
+                          for k in EXCHANGE}, clusters=total)
+
+
+def phase_sharded_out_of_core(full: dict, ooc: dict, sharded: dict,
+                              full_dir: str) -> None:
+    """Phase 5b's out-of-core run on RANKS processes that share the one
+    card: every batch pass shards OOC_BATCH rows over the ranks, and the
+    merge rounds and the final anneal run sharded. Checked against phase
+    5b: the same kernels launched on every rank, the ranks' round counts
+    equal, rank 0 the only writer with the last round's files alone left,
+    the clustering as phase 5b's, the count below phase 5b's + 15%."""
+    argv = list(full["argv"])
+    clust = os.path.join(full_dir, "sharded_ooc_result.txt")
+    tmp_dir = os.path.join(full_dir, "sharded_ooc_tmp")
+    argv[argv.index("-F") + 1] = clust
+    argv[argv.index("-D") + 1] = tmp_dir
+    argv += ["--batch-thresh", str(OOC_BATCH)]
+    recs = run_ranks("C_ooc", argv, full_dir)
+    for r, rec in enumerate(recs):
+        missing = [k for k in MODE_C + EXCHANGE if rec["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"sharded out of core: rank {r} never "
+                                 f"launched {missing}")
+        st = rec["stages"]
+        log(f"sharded out of core: rank {r}: wall {rec['wall']:.3f} s: "
+            + ", ".join(f"{k} {st.get(k, 0.0):.3f} s" for k in (
+                "regroup", "save_tmp", "read_tmp", "device_seconds",
+                "pull_seconds"))
+            + f"; tmp bytes counted {rec['tmp_bytes']}, files written "
+            f"{rec['writes']}")
+    rounds = recs[0]["tmp_rounds"]
+    if not rounds or len(rounds) < 2 or any(
+            rec["tmp_rounds"] != rounds for rec in recs):
+        raise AssertionError("sharded out of core: the ranks' rounds "
+                             f"{[rec['tmp_rounds'] for rec in recs]}")
+    writers = [r for r, rec in enumerate(recs) if rec["writes"]]
+    if writers != [0]:
+        raise AssertionError(f"sharded out of core: ranks {writers} wrote")
+    last = f"{len(rounds) - 1}.bin"
+    left = sorted(os.listdir(tmp_dir))
+    if left != [last, last + ".clust"]:
+        raise AssertionError(f"sharded out of core: {left} left in the tmp "
+                             "directory")
+    saved, worst = check_clustering("sharded out of core", clust,
+                                    full["counts"], full["v_kmers"],
+                                    f16_rounds=len(rounds))
+    total = recs[0]["clusters"]
+    rise = total / ooc["clusters"] - 1
+    if not rise < COUNT_BOUND["terminal"][1]:
+        raise AssertionError(f"sharded out of core: {total} clusters "
+                             f"against phase 5b's {ooc['clusters']} "
+                             f"({rise:+.2%})")
+    log(f"sharded out of core: {-(-FULL // OOC_BATCH)} batch passes of "
+        f"{OOC_BATCH} rows in {RANKS} shards, then {len(rounds) - 1} merge "
+        f"rounds; clusters after each {rounds}; tmp files written "
+        f"{recs[0]['tmp_bytes']} bytes")
+    log(f"sharded out of core: {total} clusters, {saved} saved (phase 5b: "
+        f"{ooc['clusters']}, {ooc['saved']}: {rise:+.2%}, "
+        f"{saved / ooc['saved'] - 1:+.2%}; phase 7: {sharded['clusters']}; "
+        f"phase 5: {full['clusters']}); centroids of 1000 sampled clusters "
+        f"within {worst:.3g} of the host means; launches per rank "
+        f"{[[rec['launches'][k] for k in MODE_C + EXCHANGE] for rec in recs]}"
+        f" (four ranks share one card: not a four-card speed)")
 
 
 def main() -> None:
@@ -1277,22 +1371,35 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds if build.build_seconds else 0:.1f} s)")
 
+    t_start = time.perf_counter()
+
+    def ended(phase: str) -> None:
+        log(f"phase {phase} ended at {time.perf_counter() - t_start:.1f} s")
+
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
     phase_kernels(LATE, exchange=False)        # logged only
     phase_kernels(OOC_BATCH)   # phase 5b's batch, a phase-7 rank's head
                                # capacity; logged only
     phase_kernels(FULL, exchange=False)        # logged only
+    ended("3")
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)
+    ended("4")
     with tempfile.TemporaryDirectory() as t5, \
             tempfile.TemporaryDirectory() as t6:
         full = phase_full(t5)
-        phase_out_of_core(full, t5)
+        ended("5")
+        ooc = phase_out_of_core(full, t5)
+        ended("5b")
         mode_e = phase_mode_e(t6)
+        ended("6")
         pipeline._DEVICE_COUNTS_CACHE.clear()
         torch.cuda.empty_cache()
         sharded = phase_sharded(full, t5, mode_e, t6)
+        ended("7")
+        phase_sharded_out_of_core(full, ooc, sharded, t5)
+        ended("7b")
     for name in ("jax", "kmerlsh_tpu"):
         if name in sys.modules:
             raise AssertionError(f"{name} was imported")

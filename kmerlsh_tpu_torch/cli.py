@@ -8,9 +8,9 @@ command on N processes forms a ``torch.distributed`` group, one rank per
 process: ``--device cuda`` then puts each rank on ``cuda:<local rank %
 device count>`` (NCCL when the host's ranks have a card each, gloo when they
 share one), ``--device cpu`` runs every rank on the CPU (gloo). A matrix of
-more rows than ``--batch-thresh`` (lowered to what the card's memory holds)
-runs out of core on one process; a multi-process run refuses it with an
-error until the sharded out-of-core rounds are ported.
+more rows than ``--batch-thresh`` (lowered to what the cards' memory holds,
+the same batch on every rank) runs out of core, on one process or sharded
+over the ranks.
 """
 
 from __future__ import annotations

@@ -62,6 +62,9 @@ class Mesh:
     def all_max(self, x: int) -> int:
         return self._reduce(x, tdist.ReduceOp.MAX)
 
+    def all_min(self, x: int) -> int:
+        return self._reduce(x, tdist.ReduceOp.MIN)
+
 
 def make_mesh(device="cuda") -> Mesh:
     """The mesh of the default process group, this rank on ``device``; one

@@ -24,6 +24,7 @@ local index is ``LOCAL_RANK``, else its process id modulo that count.
 from __future__ import annotations
 
 import os
+import socket
 
 import numpy as np
 import torch
@@ -108,6 +109,24 @@ def barrier(name: str) -> None:
     del name   # the reference names its barriers; torch's need no name
     if process_count() > 1:
         tdist.barrier()
+
+
+def card_peers(device) -> tuple[int, bool]:
+    """(the number of ranks whose device is this rank's card, whether this
+    rank is the first of them): ranks share a card when they run on one
+    host with the same CUDA device. On the CPU every rank counts as a
+    device of its own, as the reference's virtual devices do. One process:
+    (1, True)."""
+    if process_count() == 1:
+        return 1, True
+    dev = torch.device(device)
+    rank = tdist.get_rank()
+    me = ((socket.gethostname(), str(dev)) if dev.type == "cuda"
+          else (socket.gethostname(), str(dev), rank))
+    cards = [None] * process_count()
+    tdist.all_gather_object(cards, me)
+    peers = [r for r, card in enumerate(cards) if card == me]
+    return len(peers), peers[0] == rank
 
 
 def gather_np(x: torch.Tensor, mesh=None, dim: int = 0) -> np.ndarray:

@@ -28,6 +28,7 @@ import hashlib
 import json
 import math
 import os
+import tempfile
 from pathlib import Path
 
 # static: bytes per k-mer row as a function of sample count S:
@@ -121,10 +122,24 @@ def cached_per_row_bytes(num_samples: int, device="cuda") -> int | None:
     if measured is None:
         return None
     cal[key] = measured
-    os.makedirs(os.path.dirname(_CAL_PATH), exist_ok=True)
-    with open(_CAL_PATH, "w") as f:
-        json.dump(cal, f)
+    _write_atomically(_CAL_PATH, cal)
     return measured
+
+
+def _write_atomically(path: str, obj) -> None:
+    """``obj`` as JSON to ``path`` through a temporary file in the same
+    directory and ``os.replace``: a concurrent reader sees the old file or
+    the new one, never a part of either."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=os.path.basename(path) + ".")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
 
 
 def rows_budget(num_samples: int, n_devices: int = 1, fill: float = 0.6,
@@ -149,3 +164,29 @@ def rows_budget(num_samples: int, n_devices: int = 1, fill: float = 0.6,
                 per_row, fill = measured, 0.8
     rows = int(mem * fill * n_devices / per_row)
     return max(1 << 16, 1 << int(math.floor(math.log2(max(rows, 1)))))
+
+
+def batch_budget(num_samples: int, kmap_size: int, device="cuda") -> int:
+    """The batch of a run on every rank of the process group: the ranks
+    times the least share of a card over all ranks (one all-reduce, so
+    that every rank takes the same batch). A rank's share is its card's
+    :func:`rows_budget` for the rows that card holds, divided among the
+    ranks on that card and rounded down to a power of two (the shard
+    capacity of a sharded session, ``dist._local_cap``, stays within it).
+    With one card a rank this is the reference's ``rows_budget(S, ranks)``;
+    on the CPU every rank counts as a device of its own. Where bytes a row
+    are measured, the first rank on each card measures them while the
+    card's other ranks wait at a barrier, then read its cached result."""
+    from kmerlsh_tpu_torch.parallel import multihost
+    from kmerlsh_tpu_torch.parallel.mesh import make_mesh
+
+    ranks = multihost.process_count()
+    on_card, first = multihost.card_peers(device)
+    rows = -(-kmap_size * on_card // ranks)     # the rows this card holds
+    if not first:
+        multihost.barrier("memory_per_row")
+    card = rows_budget(num_samples, 1, kmap_size=rows, device=device)
+    if first:
+        multihost.barrier("memory_per_row")
+    share = 1 << int(math.floor(math.log2(max(card // on_card, 1))))
+    return ranks * make_mesh(device).all_min(share)

@@ -1,9 +1,17 @@
 """The port's out-of-core mode C, its batch clamp and its greedy engine
-against the JAX package's: init_clustering on well-separated counts, the
-CLI at a small --batch-thresh on the synthetic fixture, the tmp round files
-read across packages, rows_budget, and the greedy oracle."""
+against the JAX package's: init_clustering on well-separated counts, on
+one process and on two gloo ranks (against JAX on two devices), the CLI at
+a small --batch-thresh on the synthetic fixture, the tmp round files read
+across packages, rows_budget and the batch of a multi-process run, and the
+greedy oracle."""
 
+import json
 import os
+import pickle
+import socket
+import subprocess
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -12,6 +20,7 @@ from kmerlsh_tpu import pipeline as jpipeline, testdata
 from kmerlsh_tpu.cluster import engine as jengine, greedy as jgreedy
 from kmerlsh_tpu.config import HyperParams as JParams
 from kmerlsh_tpu.io import clusterio as jclusterio
+from kmerlsh_tpu.parallel import dist as jdist, mesh as jmeshlib
 from kmerlsh_tpu.utils import hbm as jhbm
 from kmerlsh_tpu.utils.timing import Stages as JStages
 from kmerlsh_tpu_torch import cli, pipeline
@@ -24,6 +33,7 @@ from kmerlsh_tpu_torch.utils.timing import Stages
 from test_cluster import partition_of, planted, same_partition
 from test_pipeline import K, marker_keys
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S_SEP, N_SEP = 6, 4096
 
 
@@ -146,6 +156,180 @@ def test_out_of_core_f16_tmp_matches_f32(tmp_path, monkeypatch):
     assert np.array_equal(a.offsets, b.offsets)
 
 
+# --- two ranks -------------------------------------------------------------
+
+# One gloo rank of two: the sharded init_clustering on the separated counts
+# (its round-file writes recorded by file name), then the batch of a run
+# (hbm.batch_budget) with the card count, each rank's card memory and the
+# measurement of bytes a row stubbed.
+RANK = r"""
+import os, pickle, sys, time
+import torch
+import torch.distributed as tdist
+
+rank, port, job_path, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                             sys.argv[4])
+torch.set_num_threads(1)
+tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                         world_size=2, rank=rank)
+from kmerlsh_tpu_torch import pipeline
+from kmerlsh_tpu_torch.config import HyperParams
+from kmerlsh_tpu_torch.io import clusterio
+from kmerlsh_tpu_torch.parallel import multihost
+from kmerlsh_tpu_torch.utils import hbm
+from kmerlsh_tpu_torch.utils.timing import Stages
+
+job = pickle.load(open(job_path, "rb"))
+res = {}
+rounds = []
+real_save = clusterio.save_result
+
+
+def save_result(ids_list, path, *a, **kw):
+    name = os.path.basename(path)
+    if not rounds or rounds[-1][0] != name:
+        rounds.append([name, 0])
+    rounds[-1][1] += len(ids_list)
+    return real_save(ids_list, path, *a, **kw)
+
+
+clusterio.save_result = save_result
+binaries = []
+real_binary = clusterio.save_binary
+
+
+def save_binary(cents, ids_list, path, *a, **kw):
+    binaries.append(os.path.basename(path))
+    return real_binary(cents, ids_list, path, *a, **kw)
+
+
+clusterio.save_binary = save_binary
+pipeline.MERGE_WINDOW_MIN = 64
+p = HyperParams(tmp_dir=job["tmp"], work_dir=job["work"], batch_thresh=256,
+                min_similarity=0.85, seed=5)
+st = Stages()
+values, ids = pipeline.init_clustering(p, job["n"], job["v"], st, "cpu")
+res["init"] = dict(values=values, flat=ids.flat, offsets=ids.offsets,
+                   rounds=rounds, binaries=sorted(set(binaries)),
+                   tmp_rounds=list(st.metrics["tmp_rounds"]),
+                   tmp_bytes=st.metrics["tmp_bytes"],
+                   device_seconds=st.times.get("device_seconds", 0.0))
+
+measured = []
+
+
+def measure(num_samples, device):
+    measured.append(num_samples)
+    time.sleep(0.5)          # long enough for another rank to miss the cache
+    return 430
+
+
+hbm.measure_per_row_bytes = measure
+hbm._cuda = lambda device: True
+torch.cuda.get_device_name = lambda device=None: "card"
+for name, (cards, mems, kmap) in job["budget"].items():
+    torch.cuda.device_count = lambda cards=cards: cards
+    hbm.device_memory_bytes = lambda device, m=mems[rank]: m
+    hbm._CAL_PATH = os.path.join(job["cal"], name, "memory_per_row.json")
+    dev, _ = multihost.rank_device("cuda", 2, rank)
+    measured.clear()
+    res[name] = (dev, hbm.batch_budget(20, kmap, dev), len(measured))
+pickle.dump(res, open(out, "wb"))
+tdist.destroy_process_group()
+"""
+
+CARD = 80 * 10 ** 9
+# name → (cards on the host, each rank's card memory, rows of the matrix)
+BUDGET = {
+    "shared": (1, (CARD, CARD), 1 << 20),
+    "two_cards": (2, (CARD, CARD), 1 << 20),
+    "uneven": (2, (CARD, 3 * 10 ** 10), 1 << 20),
+    "measured_shared": (1, (CARD, CARD), 1 << 29),
+    "measured_two_cards": (2, (CARD, CARD), 1 << 29),
+}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Both ranks' results (RANK), and JAX's init_clustering on the same
+    counts over a mesh of two devices, merge rounds included, with float32
+    sort payloads; the two run side by side."""
+    root = tmp_path_factory.mktemp("ooc2")
+    v = _separated_counts(root / "work")
+    job = root / "job.pkl"
+    job.write_bytes(pickle.dumps(dict(
+        tmp=str(root / "tmp"), work=str(root / "work"), n=N_SEP, v=v,
+        cal=str(root / "cal"), budget=BUDGET)))
+    script = root / "rank.py"
+    script.write_text(RANK)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    env = {k: val for k, val in os.environ.items() if k not in (
+        "XLA_FLAGS", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    outs = [str(root / f"rank{r}.pkl") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r), port, str(job), outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)]
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jpipeline, "MERGE_WINDOW_MIN", 64)
+            mp.setattr(jpipeline, "_mesh_or_none",
+                       lambda: jmeshlib.make_mesh(2))
+            mp.setattr(jdist, "make_mesh", lambda n=None: jmeshlib.make_mesh(2))
+            mp.setattr(jengine, "PERMUTE", "payload_sort")
+            rounds = []
+            _recording(mp, jclusterio, rounds)
+            p = JParams(tmp_dir=str(root / "jtmp"), work_dir=str(root / "work"),
+                        batch_thresh=256, min_similarity=0.85, seed=5)
+            st = JStages()
+            values, ids = jpipeline.init_clustering(p, N_SEP, v, st)
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        assert proc.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    ranks = [pickle.loads(open(o, "rb").read()) for o in outs]
+    return dict(ranks=ranks, tmp=root / "tmp",
+                jax=dict(values=values, ids=ids, rounds=rounds))
+
+
+def test_sharded_init_clustering_matches_jax(two_ranks):
+    """On both ranks: the same partition in the same order as JAX's
+    two-device run, the same cluster count after the batch passes and
+    after every merge round, centroids within the f16 rounding of the tmp
+    files, and device seconds counted."""
+    j = two_ranks["jax"]
+    assert len(j["rounds"]) >= 2            # batch passes + merge rounds
+    for r, rank in enumerate(two_ranks["ranks"]):
+        got = rank["init"]
+        assert got["tmp_rounds"] == [n for _, n in j["rounds"]], r
+        assert np.array_equal(got["flat"], j["ids"].flat), r
+        assert np.array_equal(got["offsets"], j["ids"].offsets), r
+        np.testing.assert_allclose(got["values"], j["values"],
+                                   rtol=2 ** -10, atol=2 ** -14)
+        assert got["device_seconds"] > 0
+
+
+def test_sharded_round_files_written_by_rank0_alone(two_ranks):
+    """Rank 0 writes every round file JAX writes, with the same clusters;
+    rank 1 writes none; only the last round's two files remain, and both
+    ranks count their bytes."""
+    r0, r1 = (rank["init"] for rank in two_ranks["ranks"])
+    assert r0["rounds"] == two_ranks["jax"]["rounds"]
+    assert r0["binaries"] == sorted(name.removesuffix(".clust")
+                                    for name, _ in r0["rounds"])
+    assert r1["rounds"] == [] and r1["binaries"] == []
+    last = r0["binaries"][-1]
+    assert sorted(os.listdir(two_ranks["tmp"])) == [last, last + ".clust"]
+    assert r0["tmp_bytes"] == r1["tmp_bytes"] > 0
+
+
 # --- the CLI on the synthetic fixture -----------------------------------------
 
 def _argv(m, work, mode, *extra):
@@ -235,20 +419,6 @@ def test_greedy_cli_matches_jax(fixture_bc):
         assert mine and mine == (work / f"jgreedy.txt{ext}").read_bytes()
 
 
-def test_sharded_out_of_core_refused(fixture_bc, tmp_path, monkeypatch):
-    """A multi-process run whose matrix exceeds the batch, or that asks for
-    the greedy engine, is refused before any work: the sharded out-of-core
-    rounds are not ported yet."""
-    work, m = fixture_bc
-    monkeypatch.setattr(pipeline.multihost, "process_count", lambda: 2)
-    for extra in (["--batch-thresh", "100"], ["--engine", "greedy"]):
-        argv = _argv(m, work, "C", *extra, "-F", str(tmp_path / "r.txt"),
-                     "-D", str(tmp_path / "tmp"))
-        with pytest.raises(NotImplementedError, match="sharded out-of-core"):
-            cli.main(argv)
-        assert not os.listdir(tmp_path)
-
-
 # --- the batch clamp ------------------------------------------------------------
 
 def test_rows_budget_matches_jax():
@@ -317,6 +487,92 @@ def test_measured_bytes_are_cached_by_card_samples_and_sources(
     monkeypatch.setattr(hbm, "_source_digest", lambda: "changed")
     assert hbm.cached_per_row_bytes(20) == 403
     assert calls == [20, 400, 20]
+
+
+def test_shared_card_gets_half_of_two_cards(two_ranks):
+    """Two ranks on one card (rank_device with one card) take the batch
+    that card holds, half of what two cards give; two cards give the
+    reference's rows_budget over two devices."""
+    r0, r1 = (rank for rank in two_ranks["ranks"])
+    assert r0["shared"][0] == r1["shared"][0] == "cuda:0"
+    assert (r0["two_cards"][0], r1["two_cards"][0]) == ("cuda:0", "cuda:1")
+    assert r0["shared"][1] == hbm.rows_budget(20, 1, mem=CARD)
+    assert 2 * r0["shared"][1] == r0["two_cards"][1] \
+        == jhbm.rows_budget(20, 2, mem=CARD)
+
+
+@pytest.mark.parametrize("case", list(BUDGET))
+def test_ranks_agree_on_one_batch(two_ranks, case):
+    """Every rank takes the same batch: two ranks times the least share
+    (the smaller card's in ``uneven``)."""
+    r0, r1 = (rank[case][1] for rank in two_ranks["ranks"])
+    assert r0 == r1 and r0 & (r0 - 1) == 0
+    if case == "uneven":
+        assert r0 == 2 * hbm.rows_budget(20, 1, mem=3 * 10 ** 10)
+
+
+def test_one_rank_measures_a_shared_card(two_ranks):
+    """Where bytes a row are measured, only the first rank on a card
+    measures; the other waits and reads its cached result. On two cards
+    each rank measures its own."""
+    r0, r1 = (rank for rank in two_ranks["ranks"])
+    assert (r0["measured_shared"][2], r1["measured_shared"][2]) == (1, 0)
+    assert (r0["measured_two_cards"][2], r1["measured_two_cards"][2]) \
+        == (1, 1)
+    per_card = hbm.rows_budget(20, 1, mem=CARD, per_row=430, fill=0.8)
+    assert r0["measured_shared"][1] == per_card
+    assert r0["measured_two_cards"][1] == 2 * per_card
+
+
+def test_cache_file_survives_concurrent_writers(tmp_path, monkeypatch):
+    """Sixteen threads measure sixteen sample counts at once and write the
+    cache while a reader parses it: every read parses, and the file ends
+    as valid JSON."""
+    import torch
+
+    monkeypatch.setattr(hbm, "_CAL_PATH", str(tmp_path / "c" / "m.json"))
+    monkeypatch.setattr(hbm, "_cuda", lambda device: True)
+    monkeypatch.setattr(hbm, "_source_digest", lambda: "src")
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "card")
+    monkeypatch.setattr(hbm, "measure_per_row_bytes",
+                        lambda num_samples, device: 100 + num_samples)
+    stop, bad, got = threading.Event(), [], {}
+
+    def read():
+        while not stop.is_set():
+            try:
+                with open(hbm._CAL_PATH) as f:
+                    json.load(f)
+            except FileNotFoundError:
+                pass
+            except ValueError as e:
+                bad.append(e)
+
+    def write(s):
+        for _ in range(20):
+            got[s] = hbm.cached_per_row_bytes(s)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        reader = threading.Thread(target=read)
+        reader.start()
+        writers = [threading.Thread(target=write, args=(s,))
+                   for s in range(1, 17)]
+        for w in writers:
+            w.start()
+        for w in writers:
+            w.join(timeout=60)
+        stop.set()
+        reader.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not reader.is_alive() and not any(w.is_alive() for w in writers)
+    assert not bad, bad[:3]
+    assert got == {s: 100 + s for s in range(1, 17)}
+    with open(hbm._CAL_PATH) as f:
+        assert json.load(f)
+    assert os.listdir(tmp_path / "c") == ["m.json"]
 
 
 def test_clamp_takes_the_batched_path_in_both_packages(tmp_path, monkeypatch):
