@@ -12,11 +12,12 @@ Phases:
      float32 operations over the card's rate, whichever is larger) and,
      where one PyTorch call computes the same function, that call's time
      (for lsh_keys a torch.matmul of the planes in use: the projections
-     alone): the mode-C kernels at 2^20 x 20, the exchange kernels on the
-     2^20 x 20 local-phase result with e = 4096 (the fold after a global
-     phase over four ranks' windows, rank 1's local merges folded by
-     chain_collapse at its base, which is timed with and without that
-     fold), the t-test on 2^20 cluster rows of 10 + 10 samples and of
+     alone; for sort_keys torch.sort with int64 indices, as the port
+     called it before): the mode-C kernels at 2^20 x 20, the exchange
+     kernels on the 2^20 x 20 local-phase result with e = 4096 (the fold
+     after a global phase over four ranks' windows, rank 1's local merges
+     folded by chain_collapse at its base, which is timed with and without
+     that fold), the t-test on 2^20 cluster rows of 10 + 10 samples and of
      50 + 50 (each with the continued fraction's steps: the mean a row and
      the mean of the slowest of 32 consecutive rows), the read
      scorer on one part of 2^16 reads of 150 bp against 2^22 keys (k =
@@ -29,9 +30,13 @@ Phases:
      too) and at 2^24 x 20; at each size chain_collapse is also timed
      without the parent fold (as the global phase calls it) beside a copy
      of the bytes it streams, lsh_keys is held exact at h = 1 and 30 too,
+     sort_keys exact and timed on that size's lsh_keys output (31 bits),
      and the forest finalize takes is measured (depth; a pointer-jumping
-     round by torch indexing); at 2^20 also lsh_keys at 600 samples and
-     finalize on the forest of 21 iterations;
+     round by torch indexing); at 2^20 also lsh_keys at 600 samples,
+     finalize on the forest of 21 iterations and sort_keys on its edge
+     cases (no key, one, a tile and one either side, all keys equal, all
+     BIG_KEY, random 1-bit flags); at 2^24 also sort_keys on finalize's
+     row keys (25 bits) and on the compaction's dead flags (1 bit);
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -40,8 +45,9 @@ Phases:
      with the mode-C kernels' launch counts, the result checked against the
      matrix recomputed on the host, and the depth of the session's forest;
      then one more warm run under torch.profiler: the card's time by kernel
-     (the permute's and the chain collapse's kernels, the key sorts, each
-     lsh_keys and finalize kernel, the rest) and its idle share;
+     (the permute's, the chain collapse's and the key sort's kernels, each
+     lsh_keys and finalize kernel, the rest; no sort kernel but K9's) and
+     its idle share;
   5b. out of core: phase 5's matrix through the CLI at --batch-thresh 2^22
      (four batch passes, merge rounds, the final anneal), with the mode-C
      kernels' launch counts, the batch and round counts, the tmp bytes,
@@ -139,6 +145,8 @@ KERNELS = {
                             "kmerlsh_tpu/ops/transform.py:33"),
     "lsh_keys": ("kmerlsh_tpu_torch/csrc/lsh_keys.cu",
                  "kmerlsh_tpu/ops/lsh.py:67"),
+    "sort_keys": ("kmerlsh_tpu_torch/csrc/sort_keys.cu",
+                  "kmerlsh_tpu/cluster/engine.py:117"),
     "permute_state": ("kmerlsh_tpu_torch/csrc/permute_state.cu",
                       "kmerlsh_tpu/cluster/engine.py:117"),
     "chain_collapse": ("kmerlsh_tpu_torch/csrc/chain_collapse.cu",
@@ -156,7 +164,7 @@ KERNELS = {
     "exchange_fold": ("kmerlsh_tpu_torch/csrc/exchange.cu",
                       "kmerlsh_tpu/parallel/dist.py:85"),
 }
-MODE_C = ("abundance_transform", "lsh_keys", "permute_state",
+MODE_C = ("abundance_transform", "lsh_keys", "sort_keys", "permute_state",
           "chain_collapse", "finalize")
 MODE_E = ("wrs_verdicts", "key_directory", "score_reads")
 EXCHANGE = ("exchange_window", "exchange_fold")
@@ -294,6 +302,66 @@ def log_kernels(res: dict, n: int) -> None:
         log(f"kernel {name} at {n}: max_abs_err {r['max_abs_err']:.3g}  "
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library {lib}")
+
+
+def sort_case(key: torch.Tensor, bits: int, what: str) -> dict:
+    """sort_keys on ``key`` exact against its plain version, both timed
+    beside torch.sort with int64 indices (the port's call before K9) and
+    the bound. Returns the kernel's entry."""
+    M = key.numel()
+    k = kernels.sort_keys(key, bits)
+    p = kernels.sort_keys_plain(key, bits)
+    # the keys in; the sorted keys and the int32 order out
+    entry = dict(max_abs_err=_exact(f"sort_keys on {what}", zip(k, p)),
+                 **timings(lambda: kernels.sort_keys(key, bits),
+                           lambda: kernels.sort_keys_plain(key, bits),
+                           12 * M,
+                           library=lambda: torch.sort(key, stable=True)))
+    plan = kernels.sort_plan(M, bits)
+    passes = plan["passes"]
+    # a histogram a pass; the first scatter reads keys and writes keys and
+    # indices, each later one reads both and writes both
+    floor = 4 * passes + 12 + 16 * (passes - 1)
+    log(f"sort_keys on {what}: {M} keys of {bits} bits in {passes} passes "
+        f"of {plan['digit']}-bit digits, exact; kernel {entry['ms']:.4f} ms"
+        f"  plain {entry['plain_ms']:.4f} ms  bound {entry['bound_ms']:.4f} "
+        f"ms  torch.sort {entry['library_ms']:.4f} ms; the passes' floor "
+        f"{floor} bytes a key, {bound(floor * M)['bound_ms']:.4f} ms")
+    return entry
+
+
+def sort_edge_cases() -> None:
+    """sort_keys exact against its plain version on no key, one key, a
+    tile of keys and one either side, all keys equal, all BIG_KEY and
+    random 1-bit flags."""
+    tile = kernels.sort_plan(1, lsh.KEY_BITS)["tile"]
+    r = np.random.default_rng(10)
+    ties = r.integers(0, 1000, size=tile + 1) << 20   # every digit in use
+    cases = [("no key", [], lsh.KEY_BITS), ("one key", [5], lsh.KEY_BITS),
+             ("a tile less one", ties[:tile - 1], lsh.KEY_BITS),
+             ("a tile", ties[:tile], lsh.KEY_BITS),
+             ("a tile and one", ties, lsh.KEY_BITS),
+             ("all keys equal", np.full(SMALL, 777), lsh.KEY_BITS),
+             ("all BIG_KEY", np.full(SMALL, lsh.BIG_KEY), lsh.KEY_BITS),
+             ("random flags", r.integers(0, 2, size=SMALL), 1)]
+    for what, key, bits in cases:
+        key = torch.from_numpy(np.asarray(key, np.int32)).to(DEV)
+        _exact(f"sort_keys on {what}",
+               zip(kernels.sort_keys(key, bits),
+                   kernels.sort_keys_plain(key, bits)))
+    log("sort_keys: exact on " + ", ".join(c[0] for c in cases))
+
+
+def root_keys(sizes, slots, parent) -> torch.Tensor:
+    """finalize's row keys on a session's state: each row's root where the
+    root is an alive slot, else cap0 (finalize_plain's first sort key)."""
+    cap0 = parent.shape[0]
+    roots = parent.long()
+    while not torch.equal(nxt := roots[roots], roots):
+        roots = nxt
+    alive = torch.zeros(cap0 + 1, dtype=torch.bool, device=DEV)
+    alive[slots[sizes > 0].long()] = True
+    return torch.where(alive[roots], roots, cap0).to(torch.int32)
 
 
 def finalize_timed(vt, sz, sl, parent) -> tuple[dict, int]:
@@ -438,19 +506,22 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
                   library=lambda: torch.matmul(used.T, values)))
     key = k[0]
     lsh_keys_cases(values, sizes, planes, h)
-    skey, order = torch.sort(key, stable=True)
+    res["sort_keys"] = sort_case(key, lsh.KEY_BITS, f"lsh_keys at {M}")
+    if M == SMALL:
+        sort_edge_cases()
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     slots = torch.arange(M, dtype=torch.int32, device=DEV)
 
     k = kernels.permute_state(values, sizes, slots, order)
     p = kernels.permute_state_plain(values, sizes, slots, order)
-    # state and int64 order in, state out; the library call moves the
+    # state and int32 order in, state out; the library call moves the
     # values alone
     res["permute_state"] = dict(
         max_abs_err=_exact("permute_state", zip(k, p)),
         **timings(lambda: kernels.permute_state(values, sizes, slots, order),
                   lambda: kernels.permute_state_plain(values, sizes, slots,
                                                       order),
-                  8 * S * M + 24 * M,
+                  8 * S * M + 20 * M,
                   library=lambda: torch.index_select(values, 1, order)))
     svals, ssizes, sslots = k
 
@@ -495,6 +566,10 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
         vt, sz, sl = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(DEV),
             0.95 - 0.01 * it, engine._active_h_of(na))
+    if M == FULL:   # logged only
+        sort_case(root_keys(sz, sl, parent), M.bit_length(),
+                  f"finalize's row keys at {M}")
+        sort_case((sz == 0).to(torch.int32), 1, f"the dead flags at {M}")
     res["finalize"], na = finalize_timed(vt, sz, sl, parent)
     log(f"finalize: {na} clusters over {M} rows")
     if M == SMALL:
@@ -902,9 +977,9 @@ def kernel_group(name: str) -> str:
         return "permute_state (kl_permute*)"
     if name.startswith("kl_chain"):
         return "chain_collapse (kl_chain*)"
-    if "sort" in name.lower():
-        return "key sort (torch.sort)"
-    if name.startswith("kl_"):
+    if name.startswith("kl_sort"):
+        return "sort_keys (kl_sort*)"
+    if name.startswith("kl_") or "sort" in name.lower():
         return name
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "copies and fills"
@@ -931,9 +1006,15 @@ def trace_mode_c(argv: list[str]) -> None:
     busy = device_busy_seconds(trace)
     if busy <= 0:
         raise AssertionError("full: the profiler saw no device time")
-    for name in ("permute_state (kl_permute*)", "chain_collapse (kl_chain*)"):
+    for name in ("permute_state (kl_permute*)", "chain_collapse (kl_chain*)",
+                 "sort_keys (kl_sort*)"):
         if name not in by:
             raise AssertionError(f"full: no {name} kernel in the trace")
+    others = [g for g in by if "sort" in g.lower()
+              and g != "sort_keys (kl_sort*)"]
+    if others:
+        raise AssertionError(f"full: sort kernels other than K9's in the "
+                             f"trace: {others}")
     for kernel, names in (("lsh_keys", ("kl_project", "kl_quantize")),
                           ("finalize", ("kl_fin_",))):
         if not any(g.startswith(names[0]) for g in by):
@@ -1248,7 +1329,7 @@ def phase_sharded(full: dict, full_dir: str, mode_e: dict,
     recs = run_ranks("C", argv, full_dir)
     log(f"sharded C: rank 0's programs {recs[0]['programs']}")
     for r, rec in enumerate(recs):
-        missing = [k for k in EXCHANGE if rec["launches"][k] == 0]
+        missing = [k for k in MODE_C + EXCHANGE if rec["launches"][k] == 0]
         if missing:
             raise AssertionError(f"sharded C: rank {r} never launched "
                                  f"{missing}")
@@ -1271,9 +1352,10 @@ def phase_sharded(full: dict, full_dir: str, mode_e: dict,
         f"{total / full['clusters'] - 1:+.2%}, "
         f"{saved / full['saved'] - 1:+.2%}, {recs[0]['tail']} tail); "
         f"centroids of 1000 sampled "
-        f"clusters within {worst:.3g} of the host means; exchange launches "
-        f"per rank {[[rec['launches'][k] for k in EXCHANGE] for rec in recs]}"
-        f" (four ranks share one card: not a four-card speed)")
+        f"clusters within {worst:.3g} of the host means; launches per rank "
+        f"{[[rec['launches'][k] for k in MODE_C + EXCHANGE] for rec in recs]}"
+        f" ({', '.join(MODE_C + EXCHANGE)}; four ranks share one card: not "
+        f"a four-card speed)")
 
     pa, pb = (os.path.join(e_dir, f"sharded_{g}") for g in "AB")
     recs_e = run_ranks("E", mode_e["argv"] + ["--only", "-M", "E", "-o", pa,

@@ -7,8 +7,8 @@ rows (int32 [cap0]). Each iteration, run eagerly one at a time:
 
   1. ``lsh_keys`` kernel: projections on the iteration's hyperplanes, the h
      bucket bits and the secondary projection quantized into one int32 key;
-  2. ``torch.sort(stable=True)`` of the key, and the ``permute_state``
-     kernel moving the state into sorted order;
+  2. the ``sort_keys`` kernel's stable sort of the key, and the
+     ``permute_state`` kernel moving the state into sorted order;
   3. ``chain_collapse`` kernel: neighbour chains collapse onto their last
      position; the dying slots are folded into the parent forest in place.
 
@@ -71,7 +71,7 @@ def chain_collapse(values_t, sizes, keys, proj, threshold: float,
     if cur_slot is None:
         cur_slot = torch.arange(m, dtype=torch.int32, device=values_t.device)
     combined = lsh.combined_sort_key(keys, proj, sizes, h)
-    skey, order = torch.sort(combined, stable=True)
+    skey, order = kernels.sort_keys(combined, lsh.KEY_BITS)
     svt, ssize, scs = kernels.permute_state(values_t, sizes, cur_slot, order)
     smi = None if merged_into is None else merged_into[order]
     new_vt, new_size, new_scs, new_mi = kernels.chain_collapse(
@@ -84,7 +84,7 @@ def _one_iteration(values_t, sizes, slots, parent, hyperplanes, threshold,
     """One LSH iteration: (values_t, sizes, slots) in sorted order, with the
     merges folded into ``parent`` in place."""
     key, _ = kernels.lsh_keys(values_t, sizes, hyperplanes, h)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     svt, ssize, sslots = kernels.permute_state(values_t, sizes, slots, order)
     new_vt, new_size, new_slots, _ = kernels.chain_collapse(
         svt, ssize, sslots, skey, threshold, h, None, parent)
@@ -95,7 +95,7 @@ def compact_sort(values_t, sizes, slots):
     """Alive-first stable compaction: a stable sort on ``sizes == 0`` and
     the same permute as an iteration."""
     dead = (sizes == 0).to(torch.int32)
-    order = torch.sort(dead, stable=True).indices
+    order = kernels.sort_keys(dead, 1)[1]
     return kernels.permute_state(values_t, sizes, slots, order)
 
 

@@ -37,3 +37,30 @@ __device__ __forceinline__ void kl_cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// Exclusive prefix sum of v over the block (a multiple of 32 threads, at most
+// 1024); *total gets the block's sum. Called once a launch, or with a
+// __syncthreads() between calls.
+__device__ __forceinline__ int kl_block_scan(int v, int* total) {
+  __shared__ int ws[32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int t = lane < nw ? ws[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
+      if (lane >= o) t += y;
+    }
+    ws[lane] = t;
+  }
+  __syncthreads();
+  *total = ws[nw - 1];
+  return (w ? ws[w - 1] : 0) + x - v;
+}

@@ -14,17 +14,17 @@
 //      early, made the call 0.36 ms slower at 2^24 rows (PERF.md): a
 //      session's forest is a few links deep, and the writes cost more than
 //      the loads they save;
-//   4. torch.sort(key, stable=True), in the wrapper: rows by root. Within a
-//      root's segment the rows ascend, so its first row is the cluster's
-//      smallest member and its length the member count; dead-rooted rows
-//      come last;
+//   4. K9 sort_keys(key) (csrc/sort_keys.cu), in the wrapper: rows by root,
+//      an int32 row id each. Within a root's segment the rows ascend, so its
+//      first row is the cluster's smallest member and its length the member
+//      count; dead-rooted rows come last;
 //   5. kl_fin_heads: each alive segment's first position writes
 //      link[root] = -(start + 1), its last position end[root] = its end;
 //   6. kl_fin_clusters: each alive column whose slot is a root finds its
 //      segment through link[slot] and takes its first member as its cluster
 //      key, its length and its start; the others take cap0 and 0;
-//   7. torch.sort of the cluster keys (stable), in the wrapper: the cluster
-//      order, clusters by smallest member;
+//   7. K9 sort_keys of the cluster keys, in the wrapper: the cluster order
+//      (int32), clusters by smallest member;
 //   8. kernels.permute_state (K2), in the wrapper: values, sizes and
 //      lengths in cluster order;
 //   9. kl_fin_block_sums, kl_fin_scan, kl_fin_place: an exclusive scan of
@@ -83,7 +83,7 @@ __global__ void kl_fin_clusters(long long fc, int cap0,
                                 const int* __restrict__ slots,
                                 const int* __restrict__ link,
                                 const int* __restrict__ end,
-                                const long long* __restrict__ rows,
+                                const int* __restrict__ rows,
                                 int* __restrict__ ckey, int* __restrict__ clen,
                                 int* __restrict__ cstart) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -98,39 +98,12 @@ __global__ void kl_fin_clusters(long long fc, int cap0,
     if (v < 0 && v >= -cap0) {
       start = -v - 1;
       len = end[s] - start;
-      key = (int)rows[start];
+      key = rows[start];
     }
   }
   ckey[i] = key;
   clen[i] = len;
   cstart[i] = start;
-}
-
-// Exclusive prefix sum of v over the block (a multiple of 32 threads, at most
-// 1024); *total gets the block's sum. Called once a launch, or with a
-// __syncthreads() between calls.
-__device__ __forceinline__ int kl_block_scan(int v, int* total) {
-  __shared__ int ws[32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) ws[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int t = lane < nw ? ws[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
-      if (lane >= o) t += y;
-    }
-    ws[lane] = t;
-  }
-  __syncthreads();
-  *total = ws[nw - 1];
-  return (w ? ws[w - 1] : 0) + x - v;
 }
 
 __global__ void __launch_bounds__(KL_FIN_CHUNK)
@@ -157,7 +130,7 @@ __global__ void __launch_bounds__(KL_FIN_CHUNK)
 }
 
 __global__ void __launch_bounds__(KL_FIN_CHUNK)
-    kl_fin_place(long long fc, int S, const long long* __restrict__ order,
+    kl_fin_place(long long fc, int S, const int* __restrict__ order,
                  const int* __restrict__ slots,
                  const int* __restrict__ cstart, const int* __restrict__ lens,
                  const int* __restrict__ csizes,
@@ -169,7 +142,7 @@ __global__ void __launch_bounds__(KL_FIN_CHUNK)
   const int off = sums[blockIdx.x] + kl_block_scan(len, &total);
   if (k >= fc) return;
   if (len > 0) {
-    const long long i = order[k];
+    const int i = order[k];
     link[slots[i]] = off - cstart[i];
   }
   if (csizes[k] == 0)
@@ -177,14 +150,14 @@ __global__ void __launch_bounds__(KL_FIN_CHUNK)
 }
 
 __global__ void kl_fin_scatter(long long cap0, const int* __restrict__ skey,
-                               const long long* __restrict__ rows,
+                               const int* __restrict__ rows,
                                const int* __restrict__ link,
                                int* __restrict__ flat) {
   long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= cap0) return;
   const int k = skey[p];
   const long long d = k == (int)cap0 ? 0 : link[k];
-  flat[p + d] = (int)rows[p];
+  flat[p + d] = rows[p];
 }
 
 // Steps 1-3: link and the rows' sort key.
@@ -218,7 +191,7 @@ KL_EXPORT int kl_finalize_segments(long long cap0, long long fc,
   if (fc > 0)
     kl_fin_clusters<<<kl_blocks(fc, threads), threads, 0, st>>>(
         fc, (int)cap0, (const int*)sizes, (const int*)slots,
-        (const int*)link, (const int*)end, (const long long*)rows,
+        (const int*)link, (const int*)end, (const int*)rows,
         (int*)ckey, (int*)clen, (int*)cstart);
   return (int)cudaGetLastError();
 }
@@ -238,13 +211,13 @@ KL_EXPORT int kl_finalize_place(long long cap0, long long fc, int S,
                                                    (int*)sums);
     kl_fin_scan<<<1, KL_FIN_CHUNK, 0, st>>>((int*)sums, nb);
     kl_fin_place<<<nb, KL_FIN_CHUNK, 0, st>>>(
-        fc, S, (const long long*)order, (const int*)slots,
+        fc, S, (const int*)order, (const int*)slots,
         (const int*)cstart, (const int*)lens, (const int*)csizes,
         (const int*)sums, (int*)link, (float*)cents);
   }
   const int threads = 256;
   kl_fin_scatter<<<kl_blocks(cap0, threads), threads, 0, st>>>(
-      cap0, (const int*)skey, (const long long*)rows, (const int*)link,
+      cap0, (const int*)skey, (const int*)rows, (const int*)link,
       (int*)flat);
   return (int)cudaGetLastError();
 }

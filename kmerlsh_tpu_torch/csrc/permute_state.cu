@@ -3,9 +3,9 @@
 // Replaces the payload half of the reference's variadic sort
 // (kmerlsh_tpu/cluster/engine.py:117 _sort_state and :451 compact_sort,
 // where XLA carried the S value rows, sizes and slots through lax.sort as
-// payloads). Here the int32 key sort is torch.sort(stable=True) and these
-// kernels move the state by the resulting order: out[:, i] = in[:, order[i]],
-// sizes and slots alike, bit for bit.
+// payloads). Here the int32 key sort is K9 sort_keys (csrc/sort_keys.cu),
+// whose int32 order these kernels move the state by: out[:, i] =
+// in[:, order[i]], sizes and slots alike, bit for bit.
 //
 // Bound on the H100: device-memory bandwidth. The state is sample-major
 // [S, M], so a gather straight from it reads a whole 32-byte sector for
@@ -73,12 +73,12 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_transpose(
 
 __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
     const unsigned* __restrict__ scr, int S, long long M,
-    const long long* __restrict__ order, int W, int C,
+    const int* __restrict__ order, int W, int C,
     unsigned* __restrict__ vout, unsigned* __restrict__ sizes_out,
     unsigned* __restrict__ slots_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  long long* ord = (long long*)smem;            // [C]
-  unsigned* tile = (unsigned*)(smem + 8 * C);   // [C][W + 4]
+  int* ord = (int*)smem;                        // [C]
+  unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][W + 4]
   const int t = threadIdx.x, ldt = W + 4, Q = W / 4;
   const long long i0 = (long long)blockIdx.x * C;
   const int n = (int)min((long long)C, M - i0);
@@ -88,7 +88,8 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
     const int dc = KL_MOVE_THREADS / Q, dq = KL_MOVE_THREADS % Q;
     int c = t / Q, q = t % Q;
     for (int e = t; e < n * Q; e += KL_MOVE_THREADS) {
-      kl_cp_async16(tile + c * ldt + 4 * q, scr + ord[c] * W + 4 * q);
+      kl_cp_async16(tile + c * ldt + 4 * q,
+                    scr + (long long)ord[c] * W + 4 * q);
       c += dc;
       q += dq;
       if (q >= Q) {
@@ -121,7 +122,7 @@ KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
                                void* vout, void* sizes_out, void* slots_out,
                                void* stream) {
   if (W < S + 2 || W % 8 != 0 || C < 32 || KL_MOVE_THREADS % C != 0 ||
-      smem != 8 * C + 4 * C * (W + 4))
+      smem != 4 * C + 4 * C * (W + 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
@@ -138,7 +139,7 @@ KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
       (const unsigned*)slots_in, W, C, (unsigned*)scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   kl_permute_gather<<<blocks, KL_MOVE_THREADS, smem, st>>>(
-      (const unsigned*)scratch, S, M, (const long long*)order, W, C,
+      (const unsigned*)scratch, S, M, (const int*)order, W, C,
       (unsigned*)vout, (unsigned*)sizes_out, (unsigned*)slots_out);
   return (int)cudaGetLastError();
 }

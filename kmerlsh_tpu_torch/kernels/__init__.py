@@ -12,6 +12,8 @@ main path went through the kernels.
 | abundance_transform  | csrc/lsh_keys.cu       | ops/transform.py abundance_transform_t    |
 | lsh_keys             | csrc/lsh_keys.cu       | ops/lsh.py signatures_t + engine.py       |
 |                      |                        | _combined_sort_key                        |
+| sort_keys            | csrc/sort_keys.cu      | engine.py _sort_state / compact_sort /    |
+|                      |                        | _finalize_grouped key sorts (lax.sort)    |
 | permute_state        | csrc/permute_state.cu  | engine.py _sort_state / compact_sort      |
 |                      |                        | payloads                                  |
 | chain_collapse       | csrc/chain_collapse.cu | engine.py chain_collapse + parent fold    |
@@ -51,8 +53,13 @@ WRS_MIN_BLOCKS = 4        # K6 blocks a SM holds, below which a warp takes
                           # fewer tiles to fit one more block
 SMEM_SM = 233472          # shared memory of one SM (1 KB of it a block)
 
+SORT_THREADS = 256        # threads of a K9 block
+SORT_KEYS_A_THREAD = 16   # keys a K9 thread takes of its block's tile
+SORT_DIGIT_BITS = 8       # K9's widest digit: a thread a digit
+
 launches: dict[str, int] = {
-    "abundance_transform": 0, "lsh_keys": 0, "permute_state": 0,
+    "abundance_transform": 0, "lsh_keys": 0, "sort_keys": 0,
+    "permute_state": 0,
     "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "key_directory": 0,
     "score_reads": 0, "exchange_window": 0, "exchange_fold": 0,
 }
@@ -183,6 +190,68 @@ def lsh_keys(values_t: torch.Tensor, sizes: torch.Tensor,
     return keys, proj
 
 
+# --- K9: stable key sort -----------------------------------------------------
+
+def sort_plan(M: int, bits: int) -> dict:
+    """Launch arithmetic of ``sort_keys`` on M keys of ``bits`` bits:
+    ``passes`` passes of a ``digit``-bit digit (the fewest passes of at
+    most SORT_DIGIT_BITS bits, the digit as narrow as they allow), over
+    ``blocks`` tiles of ``tile`` keys, one block of SORT_THREADS threads a
+    tile; ``counts``, the ints of the digit-major per-tile counts (the
+    wrapper allocates 2^digit more for the digits' totals); ``smem``, the
+    bytes of a scatter block's shared memory: its tile's keys and payloads,
+    two ints a digit (its start in the tile and out there) and 16-bit
+    digit counters for each of its warps. Positions are int32: M stays a
+    tile below 2^31."""
+    if not 1 <= bits <= 31:
+        raise ValueError(f"sort_keys: bits = {bits} outside [1, 31]")
+    passes = -(-bits // SORT_DIGIT_BITS)
+    digit = -(-bits // passes)
+    tile = SORT_THREADS * SORT_KEYS_A_THREAD
+    if M > 2**31 - 1 - tile:   # int32 positions, the last tile's too
+        raise ValueError(f"sort_keys: {M} keys")
+    blocks = -(-M // tile)
+    radix = 1 << digit
+    smem = 8 * tile + (8 + 2 * (SORT_THREADS // 32)) * radix
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"sort_keys: {digit}-bit digits need {smem} bytes "
+                         f"of shared memory, more than {SMEM_LIMIT}")
+    return dict(digit=digit, passes=passes, tile=tile, blocks=blocks,
+                counts=radix * blocks, smem=smem)
+
+
+def sort_keys_plain(key, bits: int):
+    skey, order = torch.sort(key, stable=True)
+    return skey, order.to(torch.int32)
+
+
+def sort_keys(key: torch.Tensor, bits: int):
+    """Stable ascending sort of int32 keys [M] in [0, 2^bits), 1 ≤ bits ≤
+    31 → (the sorted keys, int32 order [M]: sorted[i] = key[order[i]],
+    ties in input order). The kernel reads only the low ``bits`` bits."""
+    if not 1 <= bits <= 31:
+        raise ValueError(f"sort_keys: bits = {bits} outside [1, 31]")
+    if not _on_cuda(key):
+        return sort_keys_plain(key, bits)
+    _check(key, torch.int32, "key")
+    M = key.shape[0]
+    skey = torch.empty_like(key)
+    order = torch.empty_like(key)
+    plan = sort_plan(M, bits)
+    if M:
+        counts = torch.empty(plan["counts"] + (1 << plan["digit"]),
+                             dtype=torch.int32, device=key.device)
+        alt = (torch.empty((2, M), dtype=torch.int32, device=key.device)
+               if plan["passes"] > 1 else None)
+        _launch("kl_sort_keys", key.data_ptr(), M, bits, plan["digit"],
+                plan["passes"], plan["tile"], plan["blocks"], plan["smem"],
+                counts.data_ptr(), skey.data_ptr(), order.data_ptr(),
+                _ptr(None if alt is None else alt[0]),
+                _ptr(None if alt is None else alt[1]))
+        launches["sort_keys"] += 1
+    return skey, order
+
+
 # --- K2: permute ------------------------------------------------------------
 
 def permute_plan(S: int, M: int) -> dict:
@@ -192,12 +261,12 @@ def permute_plan(S: int, M: int) -> dict:
     transpose tile and gather run (128, 64 or 32: the most whose tile stays
     within STAGE_BYTES, so that several blocks share an SM); the blocks of
     each of the two launches and the shared memory of one (the gather's:
-    the order run, then rows of W + 4 words)."""
+    the int32 order run, then rows of W + 4 words)."""
     W = -(-(S + 2) // 8) * 8
     cols = 128
     while cols > 32 and 4 * cols * (W + 4) > STAGE_BYTES:
         cols //= 2
-    smem = 8 * cols + 4 * cols * (W + 4)
+    smem = 4 * cols + 4 * cols * (W + 4)
     if smem > SMEM_LIMIT:
         raise ValueError(f"permute_state: S = {S} rows need {smem} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
@@ -211,13 +280,14 @@ def permute_state_plain(values_t, sizes, slots, order):
 def permute_state(values_t: torch.Tensor, sizes: torch.Tensor,
                   slots: torch.Tensor, order: torch.Tensor):
     """Move the state by a permutation: column i of the output is column
-    order[i] of the input (values f32 [S, M], rows may be strided)."""
+    order[i] of the input (values f32 [S, M], rows may be strided; order
+    int32 [M], the plain version takes any integer type)."""
     if not _on_cuda(values_t, sizes, slots, order):
         return permute_state_plain(values_t, sizes, slots, order)
     _check(values_t, torch.float32, "values_t", 2)
     _check(sizes, torch.int32, "sizes")
     _check(slots, torch.int32, "slots")
-    _check(order, torch.int64, "order")
+    _check(order, torch.int32, "order")
     S, M = values_t.shape
     out = torch.empty((S, M), dtype=torch.float32, device=values_t.device)
     osizes = torch.empty_like(sizes)
@@ -393,9 +463,10 @@ def finalize_plain(values_t, sizes, slots, parent):
     first = first.scatter_reduce(0, key, rows, "amin")
     count = torch.bincount(key, minlength=cap0 + 1)
     member_key = torch.where(key == cap0, cap0, first[key])
-    flat = torch.sort(member_key, stable=True).indices.to(torch.int32)
+    bits = cap0.bit_length()
+    flat = sort_keys_plain(member_key, bits)[1]
     cluster_key = torch.where(sizes > 0, first[slots.long()], cap0)
-    order = torch.sort(cluster_key, stable=True).indices
+    order = sort_keys_plain(cluster_key, bits)[1]
     alive = sizes[order] > 0
     lens = torch.where(alive, count[slots[order].long()], 0).to(torch.int32)
     csizes = torch.where(alive, sizes[order], 0).to(torch.int32)
@@ -412,8 +483,9 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
     member rows, clusters by smallest member, members ascending, rows of
     dead roots last; lens, sizes int32 [fc] and centroids f32 [S, fc] in
     the same cluster order; entries past the alive count are 0). On the
-    card: csrc/finalize.cu's steps, the two stable sorts by torch.sort and
-    the columns moved by :func:`permute_state`."""
+    card: csrc/finalize.cu's steps, the two stable sorts by
+    :func:`sort_keys` (keys ≤ cap0: cap0.bit_length() bits) and the columns
+    moved by :func:`permute_state`."""
     if not _on_cuda(values_t, sizes, slots, parent):
         return finalize_plain(values_t, sizes, slots, parent)
     _check(values_t, torch.float32, "values_t", 2)
@@ -433,14 +505,15 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
     key = torch.empty(cap0, **i32)
     _launch("kl_finalize_roots", cap0, fc, sizes.data_ptr(), slots.data_ptr(),
             parent.data_ptr(), link.data_ptr(), key.data_ptr())
-    skey, rows = torch.sort(key, stable=True)
+    bits = cap0.bit_length()
+    skey, rows = sort_keys(key, bits)
     end = key   # free after the sort: each alive segment's end, by root
     ckey, clen, cstart = (torch.empty(fc, **i32) for _ in range(3))
     _launch("kl_finalize_segments", cap0, fc, skey.data_ptr(),
             rows.data_ptr(), sizes.data_ptr(), slots.data_ptr(),
             link.data_ptr(), end.data_ptr(), ckey.data_ptr(), clen.data_ptr(),
             cstart.data_ptr())
-    order = torch.sort(ckey, stable=True).indices
+    order = sort_keys(ckey, bits)[1]
     cents, csizes, lens = permute_state(values_t, sizes, clen, order)
     sums = torch.empty(max(-(-fc // 1024), 1), **i32)
     flat = torch.empty(cap0, **i32)

@@ -20,6 +20,7 @@ import torch
 from kmerlsh_tpu_torch.ops.rng import H_MAX
 
 BIG_KEY = 2**31 - 1  # sentinel: dead slots sort to the end
+KEY_BITS = BIG_KEY.bit_length()   # bits of every combined key, BIG_KEY too
 
 
 def project(values_t: torch.Tensor, hyperplanes: torch.Tensor) -> torch.Tensor:

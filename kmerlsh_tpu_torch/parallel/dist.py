@@ -6,9 +6,9 @@ slots) and the parent forest of its original slots [rank·c0_loc,
 (rank+1)·c0_loc). One iteration, run eagerly on every rank:
 
   1. **local phase**: the rank's shard is hashed against the replicated
-     hyperplanes (``lsh_keys``), sorted and chain-collapsed (``permute_state``,
-     ``chain_collapse``, which folds the merges into the parent shard),
-     exactly as a single-device iteration;
+     hyperplanes (``lsh_keys``), sorted and chain-collapsed (``sort_keys``,
+     ``permute_state``, ``chain_collapse``, which folds the merges into the
+     parent shard), exactly as a single-device iteration;
   2. **exchange**: the ``exchange_window`` kernel takes a fixed window of
      ``e`` alive survivors, rotating with the iteration so that every
      survivor is exchanged within ⌈alive/e⌉ iterations, and ONE all_gather
@@ -43,7 +43,7 @@ import torch
 from kmerlsh_tpu_torch import kernels
 from kmerlsh_tpu_torch.cluster import engine
 from kmerlsh_tpu_torch.cluster.groups import Groups
-from kmerlsh_tpu_torch.ops import rng
+from kmerlsh_tpu_torch.ops import lsh, rng
 from kmerlsh_tpu_torch.parallel.mesh import Mesh, make_mesh
 from kmerlsh_tpu_torch.parallel.multihost import gather_np
 
@@ -80,7 +80,7 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
     # ---- local phase: hash + single-pass chain collapse on my shard, its
     #      merges folded into my parent shard ----
     key, _ = kernels.lsh_keys(values_t, sizes, planes, h)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     sv, ss, sl = kernels.permute_state(values_t, sizes, slots, order)
     values_t, sizes, slots, _ = kernels.chain_collapse(
         sv, ss, sl, skey, threshold, h, None, parent, base)
@@ -96,7 +96,7 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
 
     # ---- global phase: replicated merge of the gathered summaries ----
     gkey, _ = kernels.lsh_keys(g_vals, g_sizes, planes, h)
-    gskey, gorder = torch.sort(gkey, stable=True)
+    gskey, gorder = kernels.sort_keys(gkey, lsh.KEY_BITS)
     gv, gs, gsl = kernels.permute_state(g_vals, g_sizes, g_slots, gorder)
     m_vals, m_sizes, m_scs, m_mi = kernels.chain_collapse(gv, gs, gsl, gskey,
                                                           threshold, h)

@@ -8,7 +8,7 @@ import torch
 
 from kmerlsh_tpu_torch import kernels, testdata
 from kmerlsh_tpu_torch.cluster import engine
-from kmerlsh_tpu_torch.ops import reads, rng
+from kmerlsh_tpu_torch.ops import lsh, reads, rng
 
 pytestmark = pytest.mark.cuda
 
@@ -97,11 +97,59 @@ def test_permute_exact(dev, s):
     wide = torch.from_numpy(r.normal(size=(s, n)).astype(np.float32)).to(dev)
     sizes = torch.from_numpy(r.integers(0, 9, n, dtype=np.int32)).to(dev)
     slots = torch.randperm(n, device=dev).to(torch.int32)
-    order = torch.randperm(m, device=dev)
+    order = torch.randperm(m, device=dev).to(torch.int32)
     assert m % kernels.permute_plan(s, m)["cols"]
     k = kernels.permute_state(wide[:, :m], sizes[:m], slots[:m], order)
     p = kernels.permute_state_plain(wide[:, :m], sizes[:m], slots[:m], order)
     assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+SORT_TILE = kernels.SORT_THREADS * kernels.SORT_KEYS_A_THREAD
+
+
+def _sort_same(key, bits):
+    k = kernels.sort_keys(key, bits)
+    p = kernels.sort_keys_plain(key, bits)
+    assert k[1].dtype == torch.int32
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, SORT_TILE - 1, SORT_TILE,
+                               SORT_TILE + 1, 70001, (1 << 20) + 7])
+@pytest.mark.parametrize("bits", [1, 7, 11, 12, 25, 31])
+def test_sort_keys_exact(dev, n, bits):
+    """Heavy ties (300 distinct keys over the bits, a tenth at the top
+    key) on either side of a tile's length."""
+    r = np.random.default_rng(n + bits)
+    distinct = r.integers(0, 1 << bits, size=300)
+    key = distinct[r.integers(0, 300, size=n)]
+    key[r.random(n) < 0.1] = (1 << bits) - 1
+    _sort_same(torch.from_numpy(key.astype(np.int32)).to(dev), bits)
+
+
+def test_sort_keys_exact_on_edge_keys(dev):
+    """All keys equal, all BIG_KEY, keys in descending order, every 31-bit
+    key distinct, random flags of 1 bit, and a session's combined keys."""
+    n = 3 * SORT_TILE + 5
+    r = np.random.default_rng(5)
+    cases = [(np.full(n, 12345), 31), (np.full(n, lsh.BIG_KEY), 31),
+             (np.arange(n)[::-1], 31), (r.integers(0, 2, size=n), 1),
+             (r.permutation(1 << 20)[:n] << 11, 31)]
+    for key, bits in cases:
+        _sort_same(torch.from_numpy(np.ascontiguousarray(
+            key, np.int32)).to(dev), bits)
+    _, _, values, sizes = _state(1 << 16, dev)
+    key, _ = kernels.lsh_keys(values, sizes,
+                              rng.draw_hyperplanes(0, 0, S).to(dev), 12)
+    _sort_same(key, lsh.KEY_BITS)
+
+
+def test_sort_keys_refuses_bad_input(dev):
+    key = torch.arange(100, dtype=torch.int32, device=dev)
+    for bad, bits in ((key.to(torch.int64), 31), (key[::2], 31),
+                      (key.view(10, 10), 31), (key, 0), (key, 32)):
+        with pytest.raises(ValueError):
+            kernels.sort_keys(bad, bits)
 
 
 def _random_case(dev, n):
@@ -109,7 +157,7 @@ def _random_case(dev, n):
     _, _, values, sizes = _state(n, dev, n_prof=16)
     key, _ = kernels.lsh_keys(values, sizes,
                               rng.draw_hyperplanes(1, 1, S).to(dev), 3)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
     return (*kernels.permute_state(values, sizes, slots, order), skey)
 
@@ -422,7 +470,7 @@ def test_exchange_fold_exact(dev, rank, n, e):
     _, _, values, sizes = _state(n, dev, n_prof=64)
     key, _ = kernels.lsh_keys(values, sizes,
                               rng.draw_hyperplanes(3, 0, S).to(dev), 4)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
     sv, ss, sl = kernels.permute_state(values, sizes, slots, order)
     local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, 4)

@@ -40,7 +40,7 @@ def test_plans_follow_s(S):
     assert W >= S + 2 and (W * 4) % 32 == 0 and W % 4 == 0
     assert cols in (32, 64, 128) and move["threads"] % cols == 0
     assert (move["blocks"] - 1) * cols < 1 << 21 <= move["blocks"] * cols
-    assert move["smem"] == 8 * cols + 4 * cols * (W + 4)
+    assert move["smem"] == 4 * cols + 4 * cols * (W + 4)   # int32 order run
     assert (W + 4) % 8 == 4   # 16-byte rows whose reads miss no bank
     assert move["smem"] <= kernels.SMEM_LIMIT
 

@@ -178,7 +178,8 @@ def measure_exchange(c: int) -> None:
     del counts
     h = engine._active_h_of(int((sz > 0).sum()))
     key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(0, 0, S).to(dev), h)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = (kernels.sort_keys(key, 31) if hasattr(kernels, "sort_keys")
+                   else torch.sort(key, stable=True))   # a parent tree's
     sl = torch.arange(c, dtype=torch.int32, device=dev)
     sv, ss, sl = kernels.permute_state(vt, sz, sl, order)
     local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, h)

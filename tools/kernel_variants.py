@@ -5,6 +5,7 @@ card, in one process.
     python3 tools/kernel_variants.py
     python3 tools/kernel_variants.py fold
     python3 tools/kernel_variants.py wrs [PARENT_ROOT]
+    python3 tools/kernel_variants.py sort
 
 Each variant is a list of substitutions in ``kmerlsh_tpu_torch/csrc``; the
 sources of every variant are compiled with the flags of
@@ -94,6 +95,25 @@ its own entry point's arguments), that kernel and PARENT_WRS_VARIANTS:
   parent-one-pass    the sums of squares from one pass over the values
                      (Σv² − x̄Σv: not the plain version's rounding), so each
                      value is loaded once.
+
+``sort`` times the key sort (sort_keys) on chip_smoke.py phase 3's
+lsh_keys output at 2^20, 2^21, 2^22 and 2^24 x 20 (31 bits) and on the
+1-bit dead flags of the 2^24 state after six iterations, beside
+torch.sort (int64 indices, the port's call before the kernel), two
+rounds alternating, each output checked equal to the plain version's;
+then the committed kernel's card time by kernel at 2^24 (torch.profiler).
+SORT_VARIANTS:
+
+  committed    the sources as they are;
+  match-any    a warp's lanes with one digit found by __match_any_sync
+               instead of a ballot a digit bit;
+  keys-8, keys-12, keys-24
+               8, 12 or 24 keys a thread instead of 16 (tiles of 2048,
+               3072 or 6144 keys);
+  digit-7      the committed sources on a plan of at most 7-bit digits
+               (five passes of 31 bits);
+  bounds-3     the scatter held to 85 registers a thread (three blocks a
+               SM).
 
 A variant that does not compile is reported and left out.
 """
@@ -670,7 +690,8 @@ def fold_inputs(M: int):
     del counts
     h = engine._active_h_of(int((sz > 0).sum()))
     key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(0, 0, S).to(dev), h)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = (kernels.sort_keys(key, 31) if hasattr(kernels, "sort_keys")
+                   else torch.sort(key, stable=True))   # a parent tree's
     sl = torch.arange(M, M + M, dtype=torch.int32, device=dev)
     sv, ss, sl = kernels.permute_state(vt, sz, sl, order)
     parent = torch.arange(M, M + M, dtype=torch.int32, device=dev)
@@ -824,7 +845,93 @@ def main_wrs(parent: str | None) -> None:
     build._lib = None
 
 
+BALLOTS = """  unsigned m = 0xFFFFFFFFu;
+#pragma unroll
+  for (int b = 0; b <= KL_SORT_MAX_DIGIT; ++b) {
+    if (b > digit) break;
+    const unsigned bit = (dg >> b) & 1u;
+    const unsigned bal = __ballot_sync(0xFFFFFFFFu, bit);
+    m &= bit ? bal : ~bal;
+  }
+  return m;"""
+KEYS = "#define KL_SORT_KPT 16"
+SCATTER = "__launch_bounds__(KL_SORT_THREADS) kl_sort_scatter"
+SORT_VARIANTS = {
+    "committed": [],
+    "match-any": [("sort_keys.cu", BALLOTS,
+                   "  return __match_any_sync(0xFFFFFFFFu, dg);")],
+    **{f"keys-{n}": [("sort_keys.cu", KEYS, f"#define KL_SORT_KPT {n}")]
+       for n in (8, 12, 24)},
+    "digit-7": [],
+    "bounds-3": [("sort_keys.cu", SCATTER,
+                  SCATTER.replace("THREADS)", "THREADS, 3)"))],
+}
+# the plan each variant's library needs: (keys a thread, widest digit)
+SORT_PLANS = {"keys-8": (8, 8), "keys-12": (12, 8), "keys-24": (24, 8),
+              "digit-7": (16, 7)}
+
+
+def main_sort() -> None:
+    libs = build_variants(SORT_VARIANTS)
+    plan0 = kernels.SORT_KEYS_A_THREAD, kernels.SORT_DIGIT_BITS
+    build._lib = libs["committed"]
+    cases = []
+    for M in (cs.SMALL, cs.LATE, cs.OOC_BATCH, cs.FULL):
+        counts = torch.from_numpy(cs.make_counts(M, seed=1)).to(cs.DEV)
+        cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+        vt, sz = kernels.abundance_transform(counts, (cov / M).float())
+        del counts
+        key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(0, 0, cs.S).to(
+            cs.DEV), engine._active_h_of(int((sz > 0).sum())))
+        cases.append((f"lsh_keys at {M}", key, 31))
+        if M == cs.FULL:
+            sl = torch.arange(M, dtype=torch.int32, device=cs.DEV)
+            for it in range(6):
+                vt, sz, sl = engine._one_iteration(
+                    vt, sz, sl, sl.clone(), rng.draw_hyperplanes(0, it, cs.S)
+                    .to(cs.DEV), 0.95 - 0.01 * it,
+                    engine._active_h_of(int((sz > 0).sum())))
+            cases.append((f"dead flags at {M}", (sz == 0).to(torch.int32), 1))
+        del vt, sz
+    for what, key, bits in cases:
+        want = kernels.sort_keys_plain(key, bits)
+        cs.log(f"sort {what}: torch.sort "
+               f"{cs.cuda_ms(lambda: torch.sort(key, stable=True)):.4f} ms")
+        for rnd in range(2):
+            for name, lib in libs.items():
+                build._lib = lib
+                (kernels.SORT_KEYS_A_THREAD,
+                 kernels.SORT_DIGIT_BITS) = SORT_PLANS.get(name, plan0)
+                cs.log(f"sort {what}, variant {name}, round {rnd}: " + timed(
+                    kernels.sort_keys, (key, bits), want))
+    build._lib = libs["committed"]
+    kernels.SORT_KEYS_A_THREAD, kernels.SORT_DIGIT_BITS = plan0
+    key = cases[-2][1]
+    kernels.sort_keys(key, 31)
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as trace:
+        for _ in range(10):
+            kernels.sort_keys(key, 31)
+        torch.cuda.synchronize()
+    by = {}
+    for e in trace.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by.get(e.name.split("(")[0], (0.0, 0))
+            by[e.name.split("(")[0]] = (
+                ms + (e.time_range.end - e.time_range.start) * 1e-3, n + 1)
+    for name, (ms, n) in sorted(by.items()):
+        cs.log(f"sort at {cs.FULL}, card time by kernel: {name}: "
+               f"{ms / 10:.4f} ms a sort in {n / 10:g} launches")
+    build._lib = None
+
+
 def main() -> None:
+    if sys.argv[1:] == ["sort"]:
+        main_sort()
+        return
     if sys.argv[1:] == ["fold"]:
         main_fold()
         return
