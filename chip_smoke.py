@@ -52,10 +52,22 @@ Phases:
      (four batch passes, merge rounds, the final anneal), with the mode-C
      kernels' launch counts, the batch and round counts, the tmp bytes,
      device and pull seconds and the wall, the result checked as phase 5's
-     and its count beside phase 5's; then the bytes a row of a session
-     measured on the card (hbm.measure_per_row_bytes), which must not lie
-     below the peak of phase 5's cold session over its rows, and
-     rows_budget at 20 and 400 samples;
+     and its count beside phase 5's; each of the first three batches'
+     flushes (its deferred pull and its tmp save) must run on the flush
+     thread and intersect the next batch's read and session (each
+     overlap logged, the appends' own too, and the thread's share of
+     save_tmp); then the bytes a row of a session measured on the card
+     (hbm.measure_per_row_bytes), which must not lie below the peak of
+     phase 5's cold session over its rows, and rows_budget at 20 and 400
+     samples;
+  5c. the flush thread: a 2^20 x 20 matrix out of core at --batch-thresh
+     2^18 through the CLI, as shipped, sequential (pipeline._defers
+     patched to False) and as shipped under torch.profiler: the three
+     clustering files byte-identical, the tmp rounds and bytes equal, the
+     deferred runs' batches flushed as phase 5b's, and in
+     the traced run every deferred pull's device-to-pinned copies on a
+     stream that no kernel ran on; each run's wall and batch passes'
+     span logged;
   6. mode E at full size: a 2^24 x 20 matrix whose rows are the 31-mers of
      random source sequences (one abundance profile per source, a few per
      cent shifted between the groups), 20 FASTQs of 2^16 reads x 150 bp,
@@ -96,11 +108,13 @@ exits non-zero at once where torch sees no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -133,6 +147,8 @@ SMALL = 1 << 20
 LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
 FULL = 1 << 24
 OOC_BATCH = 1 << 22      # phase 5b's --batch-thresh: four batch passes
+FLUSH_ROWS = 1 << 20     # phase 5c's matrix
+FLUSH_BATCH = 1 << 18    # phase 5c's --batch-thresh: four batch passes
 RANKS = 4                # phase 7's processes, all on the one card
 WIDE_S = 600             # many samples: lsh_keys' planes fill shared memory
 WIDE_E = 100             # the t-test's wider rows: 50 + 50 samples
@@ -927,8 +943,11 @@ def phase_out_of_core(full: dict, tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats(DEV)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    cli_main(argv)
+    with recording() as calls:
+        cli_main(argv)
     wall = time.perf_counter() - t0
+    flush_overlap("out of core", calls, pipeline.LAST_STAGES, wall,
+                  -(-FULL // OOC_BATCH))
     launches = {k: kernels.launches[k] for k in MODE_C}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -967,6 +986,224 @@ def phase_out_of_core(full: dict, tmp: str) -> dict:
             f"{n} rows (measured: {hbm.cached_per_row_bytes(s, DEV)} bytes a "
             f"row) of the card's {mem} bytes")
     return dict(clusters=clusters, saved=saved)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every call of the port's clusterio.save_result and
+    save_binary, counts.read_count_batch, engine.cluster_counts and the
+    engine's finalize pull (engine._pull) made inside the block: its
+    function, thread, file name (the saves), whether it was given
+    defer_pull (the pipeline's batch sessions), and its start and end on
+    the host's clock."""
+    calls = []
+    wrapped = ((clusterio, "save_result", 1), (clusterio, "save_binary", 2),
+               (countsio, "read_count_batch", None),
+               (engine, "cluster_counts", None), (engine, "_pull", None))
+    reals = [getattr(mod, name) for mod, name, _ in wrapped]
+
+    def wrap(name, fn, at):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                calls.append(dict(
+                    name=name, thread=threading.get_ident(), t0=t0,
+                    t1=time.perf_counter(), batch="defer_pull" in kw,
+                    file=None if at is None else os.path.basename(a[at])))
+        return call
+
+    for (mod, name, at), fn in zip(wrapped, reals):
+        setattr(mod, name, wrap(name, fn, at))
+    try:
+        yield calls
+    finally:
+        for (mod, name, _), fn in zip(wrapped, reals):
+            setattr(mod, name, fn)
+
+
+def flush_overlap(tag: str, calls: list[dict], st, wall: float,
+                  batches: int) -> float:
+    """From an out-of-core run's recorded calls. Every batch but the last
+    must be flushed on another thread than the main one (its deferred
+    pull, and its .clust and binary appends to round 0), and its flush
+    (from the pull's start to the binary's end) must intersect the next
+    batch's read and session: the pull starts as that read does, so
+    its copies run while the main thread reads and launches. Logs, for
+    each batch, how long the flush, the pull, and the appends alone
+    (negative: the gap after the session) overlap the next batch's read
+    and session; the thread's share of save_tmp; the batch passes' span.
+    Returns that span (s)."""
+    main = threading.main_thread().ident
+    calls = sorted(calls, key=lambda c: c["t0"])
+    of = {name: [c for c in calls if c["name"] == name and (
+        c["file"] in (None, "0.bin", "0.bin.clust"))] for name in (
+        "read_count_batch", "save_result", "save_binary")}
+    sessions = [c for c in calls if c["name"] == "cluster_counts"
+                and c["batch"]]
+    pulls = [c for c in calls if c["name"] == "_pull" and c["thread"] != main]
+    reads, results, binaries = (of[n] for n in (
+        "read_count_batch", "save_result", "save_binary"))
+    if not len(reads) == len(sessions) == len(results) == len(binaries) \
+            == batches or len(pulls) != batches - 1:
+        raise AssertionError(
+            f"{tag}: {len(reads)} reads, {len(sessions)} sessions, "
+            f"{len(results)} + {len(binaries)} saves for {batches} batches, "
+            f"{len(pulls)} pulls on a flush thread")
+
+    def overlap(a: tuple, b: tuple) -> float:
+        return min(a[1], b[1]) - max(a[0], b[0])
+
+    rows = []
+    for i in range(batches - 1):
+        nxt = (reads[i + 1]["t0"], sessions[i + 1]["t1"])
+        flush = (pulls[i]["t0"], binaries[i]["t1"])
+        if {results[i]["thread"], binaries[i]["thread"]} & {main}:
+            raise AssertionError(f"{tag}: batch {i}'s save ran on the main "
+                                 f"thread")
+        if not pulls[i]["t1"] <= results[i]["t0"]:
+            raise AssertionError(f"{tag}: batch {i}'s pull is not its own")
+        rows.append((overlap(flush, nxt),
+                     overlap((pulls[i]["t0"], pulls[i]["t1"]), nxt),
+                     overlap((results[i]["t0"], binaries[i]["t1"]), nxt)))
+        if rows[-1][0] <= 0:
+            raise AssertionError(
+                f"{tag}: batch {i}'s flush ({flush[0]:.4f}-{flush[1]:.4f} s)"
+                f" missed batch {i + 1}'s read and session ({nxt[0]:.4f}-"
+                f"{nxt[1]:.4f} s)")
+    thread_save = sum(c["t1"] - c["t0"] for c in results + binaries
+                      if c["thread"] != main)
+    span = binaries[-1]["t1"] - reads[0]["t0"]
+    log(f"{tag}: flush thread: each batch's flush / pull / appends "
+        f"overlapping the next batch's read and session by " + "; ".join(
+            " / ".join(f"{x:.4f}" for x in r) for r in rows) + " s; "
+        f"appends on the thread {thread_save:.4f} s of save_tmp "
+        f"{st.times['save_tmp']:.4f} s ({thread_save / st.times['save_tmp']:.2%}"
+        f"); batch passes {span:.4f} s of the {wall:.4f} s wall "
+        f"({span / wall:.2%}); reads " + ", ".join(
+            f"{c['t1'] - c['t0']:.4f}" for c in reads) + " s, sessions "
+        + ", ".join(f"{c['t1'] - c['t0']:.4f}" for c in sessions) + " s, "
+        "flushes " + ", ".join(f"{b['t1'] - p['t0']:.4f}" for p, b in zip(
+            pulls, binaries)) + " s (pull with its host copies / regroup / "
+        ".clust append / binary append: " + "; ".join(
+            f"{p['t1'] - p['t0']:.4f} / {r['t0'] - p['t1']:.4f} / "
+            f"{r['t1'] - r['t0']:.4f} / {b['t1'] - b['t0']:.4f}"
+            for p, r, b in zip(pulls, results, binaries)) + " s)")
+    return span
+
+
+def pinned_copies(trace, path: str) -> tuple[set, list]:
+    """From a torch.profiler trace exported to ``path``: (the streams of
+    every kernel, the (stream, bytes) of every device-to-pinned copy)."""
+    trace.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def stream(e):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    kern = {stream(e) for e in events if e.get("cat") == "kernel"}
+    pinned = [(stream(e), e["args"]["bytes"]) for e in events
+              if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", "") and "Pinned" in e["name"]]
+    return kern, pinned
+
+
+def phase_flush(tmp: str) -> None:
+    """Phase 5c: a FLUSH_ROWS x 20 matrix out of core at --batch-thresh
+    FLUSH_BATCH through the CLI, as shipped (deferred) and sequential
+    (pipeline._defers patched to False) in turns, deferred, sequential,
+    sequential, deferred, then as shipped under torch.profiler. Every
+    run's clustering files must be byte-identical to the first
+    sequential run's and its tmp_rounds and tmp_bytes equal; in the
+    traced run every deferred pull's copies (device to pinned host
+    memory) must run on a stream that no kernel ran on."""
+    counts = make_counts(FLUSH_ROWS, seed=1)
+    write_matrix(tmp, counts)
+    base = ["-a", os.path.join(tmp, "l1"), "-b", os.path.join(tmp, "l2"),
+            "--only", "-M", "C", "-I", "20", "-N", "0.8", "--seed", "0",
+            "--work-dir", tmp, "--batch-thresh", str(FLUSH_BATCH)]
+    batches = -(-FLUSH_ROWS // FLUSH_BATCH)
+    real_defers = pipeline._defers
+    out = {}
+    for run in ("deferred", "sequential", "sequential 2", "deferred 2",
+                "traced"):
+        clust = os.path.join(tmp, f"{run.replace(' ', '')}.txt")
+        argv = base + ["-F", clust, "-D", clust + ".tmp"]
+        if run.startswith("sequential"):
+            pipeline._defers = lambda bs, S, device: False
+        kernels.reset_launches()
+        try:
+            with contextlib.ExitStack() as stack:
+                calls = stack.enter_context(recording())
+                if run == "traced":
+                    trace = stack.enter_context(torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU,
+                                    torch.profiler.ProfilerActivity.CUDA]))
+                t0 = time.perf_counter()
+                cli_main(argv)
+                wall = time.perf_counter() - t0
+        finally:
+            pipeline._defers = real_defers
+        missing = [k for k in MODE_C if kernels.launches[k] == 0]
+        if missing:
+            raise AssertionError(f"flush {run}: never launched {missing}")
+        st = pipeline.LAST_STAGES
+        tag = f"flush {run}"
+        if run.startswith("sequential"):
+            main = threading.main_thread().ident
+            if {c["thread"] for c in calls} != {main}:
+                raise AssertionError(f"{tag}: a call off the main thread")
+            span = (max(c["t1"] for c in calls if c["file"] == "0.bin")
+                    - min(c["t0"] for c in calls
+                          if c["name"] == "read_count_batch"))
+            log(f"{tag}: batch passes {span:.4f} s of the {wall:.4f} s wall "
+                f"({span / wall:.2%})")
+        else:
+            span = flush_overlap(tag, calls, st, wall, batches)
+        files = [open(clust + ext, "rb").read() for ext in ("", ".clust")]
+        out[run] = dict(files=files, rounds=list(st.metrics["tmp_rounds"]),
+                        tmp_bytes=st.metrics["tmp_bytes"], wall=wall,
+                        span=span)
+        log(f"{tag}: wall {wall:.4f} s, rounds {out[run]['rounds']}, tmp "
+            f"bytes {out[run]['tmp_bytes']}, device "
+            f"{st.times['device_seconds']:.4f} s, pull "
+            f"{st.times['pull_seconds']:.4f} s; stages " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st.times.items()))
+    ref = out["sequential"]
+    for run, got in out.items():
+        if got["files"] != ref["files"]:
+            raise AssertionError(f"flush {run}: the clustering files differ "
+                                 f"from the sequential run's")
+        if (got["rounds"], got["tmp_bytes"]) != (ref["rounds"],
+                                                 ref["tmp_bytes"]):
+            raise AssertionError(f"flush {run}: rounds {got['rounds']} / "
+                                 f"{got['tmp_bytes']} bytes, sequential "
+                                 f"{ref['rounds']} / {ref['tmp_bytes']}")
+    # a deferred pull copies four arrays into pinned memory; the only other
+    # device-to-pinned copies are the scalars .item() reads (the alive
+    # counts), on the kernels' stream; the immediate pulls go to pageable
+    # memory
+    kern, pinned = pinned_copies(trace, os.path.join(tmp, "trace.json"))
+    pulls = [c for c in pinned if c[1] > 8]
+    scalars = [c for c in pinned if c[1] <= 8]
+    side = {c[0] for c in pulls}
+    if len(pulls) < 4 * batches or side & kern:
+        raise AssertionError(
+            f"flush traced: {len(pulls)} device-to-pinned copies of more "
+            f"than 8 bytes on streams {sorted(side)}, kernels on "
+            f"{sorted(kern)}")
+    log(f"flush: the three runs' files byte-identical "
+        f"({len(ref['files'][0])} + {len(ref['files'][1])} bytes, "
+        f"{len(ref['rounds']) - 1} merge rounds); the traced run's "
+        f"{len(pulls)} deferred-pull copies ({sum(c[1] for c in pulls)} "
+        f"bytes) on streams {sorted(side)}, its kernels on {sorted(kern)} "
+        f"(with {len(scalars)} scalar reads on streams "
+        f"{sorted({c[0] for c in scalars})})")
+    log("flush: batch passes (s) " + ", ".join(
+        f"{run} {r['span']:.4f}" for run, r in out.items()) + "; walls (s) "
+        + ", ".join(f"{run} {r['wall']:.4f}" for run, r in out.items()))
 
 
 def kernel_group(name: str) -> str:
@@ -1474,6 +1711,9 @@ def main() -> None:
         ended("5")
         ooc = phase_out_of_core(full, t5)
         ended("5b")
+        with tempfile.TemporaryDirectory() as t5c:
+            phase_flush(t5c)
+        ended("5c")
         mode_e = phase_mode_e(t6)
         ended("6")
         pipeline._DEVICE_COUNTS_CACHE.clear()

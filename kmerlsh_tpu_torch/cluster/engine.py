@@ -41,7 +41,8 @@ from kmerlsh_tpu_torch.ops import lsh, rng, xlamath
 # wall-clock split of the most recent cluster_counts/cluster session:
 #   device_seconds — iterations and finalize, dispatch to the host's read
 #                    of their result
-#   pull_seconds   — device→host copies of the finalize result
+#   pull_seconds   — device→host copies of the finalize result (a deferred
+#                    pull's go to its own stats instead)
 #   pull_bytes     — their size;  programs — (name, seconds) per step;
 #   clusters       — the session's cluster count
 LAST_SESSION: dict = {}
@@ -130,9 +131,10 @@ def _record(name: str, seconds: float) -> None:
 
 
 def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
-                   sync):
+                   sync, defer_pull: bool = False):
     """Run every iteration of ``thr``, then finalize and pull. Returns
-    (centroids [K, S], sizes [K], members)."""
+    (centroids [K, S], sizes [K], members), or with ``defer_pull`` the
+    (finish, stats) of :func:`_deferred`."""
     na = int((sizes > 0).sum())
     for it, threshold in enumerate(thr):
         if na == 0:
@@ -152,22 +154,79 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
 
     t0 = time.perf_counter()
     values_t, sizes, slots = compact_sort(values_t, sizes, slots)
-    flat, lens, csizes, cents = _finalize_grouped(
-        values_t[:, :na], sizes[:na], slots[:na], parent)
+    out = _finalize_grouped(values_t[:, :na], sizes[:na], slots[:na], parent)
     sync()
     _record(f"finalize@{na}", time.perf_counter() - t0)
     LAST_SESSION["clusters"] = na
+    if defer_pull:
+        return _deferred(out)
+    return _pull(*out, LAST_SESSION)
 
+
+def _pull(flat, lens, csizes, cents, stats: dict, stream=None):
+    """The finalize outputs on the host: (centroids [K, S], sizes [K],
+    members), the copies' seconds and bytes added to ``stats``. Lens,
+    sizes and centroids come first, then the members the lens count. By
+    ``.cpu()`` on the current stream, or on a CUDA side ``stream`` into
+    pinned host memory (:func:`_to_pinned`)."""
     t0 = time.perf_counter()
-    lens, csizes, cents = lens.cpu(), csizes.cpu(), cents.cpu()
+    if stream is None:
+        lens, csizes, cents = lens.cpu(), csizes.cpu(), cents.cpu()
+    else:
+        lens, csizes, cents = _to_pinned(stream, lens, csizes, cents)
     offs = np.concatenate([[0], np.cumsum(lens.numpy(), dtype=np.int64)])
-    flat = flat[:int(offs[-1])].cpu()
-    LAST_SESSION["pull_seconds"] += time.perf_counter() - t0
-    LAST_SESSION["pull_bytes"] += sum(t.numel() * t.element_size()
-                                      for t in (lens, csizes, cents, flat))
+    flat = flat[:int(offs[-1])]
+    flat = flat.cpu() if stream is None else _to_pinned(stream, flat)[0]
+    stats["pull_seconds"] += time.perf_counter() - t0
+    stats["pull_bytes"] += sum(t.numel() * t.element_size()
+                               for t in (lens, csizes, cents, flat))
     return (np.ascontiguousarray(cents.numpy().T),
             csizes.numpy().astype(np.int64),
             Groups(flat.numpy().astype(np.int64), offs))
+
+
+def _to_pinned(stream, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Copies of CUDA ``tensors`` in pinned host memory, made on ``stream``
+    and waited for. Each source is marked as used by ``stream``, so that
+    the caching allocator gives none of its memory to a later allocation
+    of another stream before these copies are done, whenever the caller
+    drops it."""
+    hosts = []
+    with torch.cuda.stream(stream):
+        for t in tensors:
+            if not t.is_contiguous():   # a copy, and no kernel, on stream
+                raise ValueError("a deferred pull copies contiguous tensors")
+            t.record_stream(stream)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
+    stream.synchronize()
+    return hosts
+
+
+def _deferred(out):
+    """(finish, stats) of a session whose pull is deferred: ``stats`` is a
+    copy of LAST_SESSION now, and ``finish()``, called on any thread, pulls
+    the finalize outputs ``out`` as the immediate path does (the same
+    triple, byte for byte), adding its seconds and bytes to ``stats`` and
+    never to LAST_SESSION, which the next session resets. On a card the
+    copies run on a side stream of ``out``'s device that first waits on an
+    event recorded now on the kernels' stream (after the finalize), so
+    that they overlap whatever the caller's thread launches next there; a
+    failed copy raises."""
+    stats = dict(LAST_SESSION, programs=list(LAST_SESSION["programs"]))
+    dev = out[0].device
+    if dev.type != "cuda":
+        return (lambda: _pull(*out, stats)), stats
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+
+    def finish():
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_event(done)
+            return _pull(*out, stats, stream=side)
+    return finish, stats
 
 
 def _sync_for(device: torch.device):
@@ -205,12 +264,14 @@ def cluster_counts(
     n: int | None = None,          # real column count of a padded tensor
     device=None,
     hyperplanes: Hyperplanes | None = None,
+    defer_pull: bool = False,
 ):
     """Single-batch mode C: abundance transform, the schedule's iterations,
     finalize. A tensor ``counts`` runs where it lies (columns past ``n``
     must be zero: they are filtered out); a numpy matrix is uploaded to
     ``device``. Returns (centroids [K, S], sizes [K], members) ordered by
-    smallest member id."""
+    smallest member id; with ``defer_pull``, (finish, stats) instead, where
+    ``finish()`` returns that triple (see :func:`_deferred`)."""
     if isinstance(counts, torch.Tensor):
         dev = counts.device
         if n is not None and n > counts.shape[1]:
@@ -221,7 +282,10 @@ def cluster_counts(
         dev = torch.device(device)
         if counts.shape[1] == 0:
             _reset_session()
-            return _empty(counts.shape[0])
+            empty = _empty(counts.shape[0])
+            if defer_pull:
+                return (lambda: empty), dict(LAST_SESSION, programs=[])
+            return empty
         counts, n = upload_counts(counts, dev)
     S, cap0 = counts.shape
     thr = np.asarray(thresholds, np.float32)
@@ -236,7 +300,7 @@ def cluster_counts(
     _record(f"transform@{cap0}", time.perf_counter() - t0)
     return _drive_session(values_t, sizes, slots, parent, thr,
                           _planes_fn(seed, S, hyperplanes, dev), verbose,
-                          sync)
+                          sync, defer_pull)
 
 
 def cluster(

@@ -1,5 +1,6 @@
 # Copy of kmerlsh_tpu/utils/timing.py; device_memory_stats reads torch's
-# allocator instead of a JAX device.
+# allocator instead of a JAX device, and a lock guards Stages' updates (the
+# out-of-core flush thread records stages beside the driver's).
 """Stage timers and structured metrics.
 
 Replaces the reference's scattered ``chrono`` spans + ``/proc/self/status``
@@ -12,16 +13,21 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 
 log = logging.getLogger("kmerlsh_tpu_torch")
 
 
 class Stages:
+    """Seconds by stage (``times``) and metrics by name; safe to record
+    from several threads at once."""
+
     def __init__(self, verbose: bool = False):
         self.times: dict[str, float] = {}
         self.metrics: dict[str, float] = {}
         self.verbose = verbose
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -30,12 +36,23 @@ class Stages:
             yield
         finally:
             dt = time.perf_counter() - t0
-            self.times[name] = self.times.get(name, 0.0) + dt
+            self.add(name, dt)
             if self.verbose:
                 print(f"[stage] {name}: {dt:.3f}s")
 
+    def add(self, name: str, seconds: float) -> None:
+        """Add ``seconds`` to stage ``name``."""
+        with self._lock:
+            self.times[name] = self.times.get(name, 0.0) + seconds
+
+    def tally(self, name: str, n: int) -> None:
+        """Add ``n`` to metric ``name``."""
+        with self._lock:
+            self.metrics[name] = self.metrics.get(name, 0) + n
+
     def record(self, name: str, value: float) -> None:
-        self.metrics[name] = value
+        with self._lock:
+            self.metrics[name] = value
         if self.verbose:
             print(f"[metric] {name}: {value}")
 

@@ -3,7 +3,8 @@ against the JAX package's: init_clustering on well-separated counts, on
 one process and on two gloo ranks (against JAX on two devices), the CLI at
 a small --batch-thresh on the synthetic fixture, the tmp round files read
 across packages, rows_budget and the batch of a multi-process run, and the
-greedy oracle."""
+greedy oracle; the sharded batch passes never defer to the flush thread
+(test_torch_flush.py has the rest of it)."""
 
 import json
 import os
@@ -163,7 +164,7 @@ def test_out_of_core_f16_tmp_matches_f32(tmp_path, monkeypatch):
 # (hbm.batch_budget) with the card count, each rank's card memory and the
 # measurement of bytes a row stubbed.
 RANK = r"""
-import os, pickle, sys, time
+import os, pickle, sys, threading, time
 import torch
 import torch.distributed as tdist
 
@@ -195,11 +196,13 @@ def save_result(ids_list, path, *a, **kw):
 
 clusterio.save_result = save_result
 binaries = []
+off_main = []
 real_binary = clusterio.save_binary
 
 
 def save_binary(cents, ids_list, path, *a, **kw):
     binaries.append(os.path.basename(path))
+    off_main.append(threading.current_thread() is not threading.main_thread())
     return real_binary(cents, ids_list, path, *a, **kw)
 
 
@@ -213,7 +216,9 @@ res["init"] = dict(values=values, flat=ids.flat, offsets=ids.offsets,
                    rounds=rounds, binaries=sorted(set(binaries)),
                    tmp_rounds=list(st.metrics["tmp_rounds"]),
                    tmp_bytes=st.metrics["tmp_bytes"],
-                   device_seconds=st.times.get("device_seconds", 0.0))
+                   device_seconds=st.times.get("device_seconds", 0.0),
+                   saves_off_main=sum(off_main),
+                   defers=pipeline._defers(256, len(job["v"]), "cpu"))
 
 measured = []
 
@@ -328,6 +333,15 @@ def test_sharded_round_files_written_by_rank0_alone(two_ranks):
     last = r0["binaries"][-1]
     assert sorted(os.listdir(two_ranks["tmp"])) == [last, last + ".clust"]
     assert r0["tmp_bytes"] == r1["tmp_bytes"] > 0
+
+
+def test_sharded_batches_never_defer(two_ranks):
+    """The mesh branch runs its batch passes one after another: rank 0
+    writes every round file on its main thread, though a single process
+    would defer batches of this size (``pipeline._defers``)."""
+    r0 = two_ranks["ranks"][0]["init"]
+    assert r0["defers"] and r0["rounds"]
+    assert r0["saves_off_main"] == 0
 
 
 # --- the CLI on the synthetic fixture -----------------------------------------
