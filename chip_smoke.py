@@ -36,7 +36,12 @@ Phases:
      finalize on the forest of 21 iterations and sort_keys on its edge
      cases (no key, one, a tile and one either side, all keys equal, all
      BIG_KEY, random 1-bit flags); at 2^24 also sort_keys on finalize's
-     row keys (25 bits) and on the compaction's dead flags (1 bit);
+     row keys (25 bits) and on the compaction's dead flags (1 bit); at
+     2^20, 2^22 and 2^24 also pairing_rounds (K10) on the first
+     iteration's sorted state, 4 rounds at 0.95 and at 0.5 with a parent
+     forest, exact against its plain version, each call timed with the
+     state restored outside its CUDA events, its bound counted from the
+     pairs each round formed and merged (no library call);
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -48,6 +53,13 @@ Phases:
      (the permute's, the chain collapse's and the key sort's kernels, each
      lsh_keys and finalize kernel, the rest; no sort kernel but K9's) and
      its idle share;
+  5d. the pairing merge: phase 5's matrix through
+     engine.cluster_counts(merge="pairing", rounds=4) at phase 5's
+     schedule, checked as phase 5's clustering, K10 launched once a
+     pairing iteration (the first iteration, the deep init pass, a chain
+     collapse), the count, walls and forest depth logged beside phase
+     5's; then the same session on its first 2^22 columns with K10 and
+     with pairing_rounds_plain, whose clusterings must be byte-identical;
   5b. out of core: phase 5's matrix through the CLI at --batch-thresh 2^22
      (four batch passes, merge rounds, the final anneal), with the mode-C
      kernels' launch counts, the batch and round counts, the tmp bytes,
@@ -149,6 +161,9 @@ FULL = 1 << 24
 OOC_BATCH = 1 << 22      # phase 5b's --batch-thresh: four batch passes
 FLUSH_ROWS = 1 << 20     # phase 5c's matrix
 FLUSH_BATCH = 1 << 18    # phase 5c's --batch-thresh: four batch passes
+PAIR_ROUNDS = 4          # phase 3's and 5d's pairing rounds an iteration
+PAIR_LOW = 0.5           # phase 3's threshold at which most pairs merge
+PAIR_SAME = 1 << 22      # phase 5d's columns run with K10 and its plain version
 RANKS = 4                # phase 7's processes, all on the one card
 WIDE_S = 600             # many samples: lsh_keys' planes fill shared memory
 WIDE_E = 100             # the t-test's wider rows: 50 + 50 samples
@@ -179,6 +194,8 @@ KERNELS = {
                         "kmerlsh_tpu/parallel/dist.py:66"),
     "exchange_fold": ("kmerlsh_tpu_torch/csrc/exchange.cu",
                       "kmerlsh_tpu/parallel/dist.py:85"),
+    "pairing_rounds": ("kmerlsh_tpu_torch/csrc/pairing.cu",
+                       "kmerlsh_tpu/cluster/engine.py:168"),
 }
 MODE_C = ("abundance_transform", "lsh_keys", "sort_keys", "permute_state",
           "chain_collapse", "finalize")
@@ -259,6 +276,30 @@ def cuda_ms(fn, reps: int = 5, calls: int = 10) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def cuda_ms_restored(fn, restore, reps: int = 5, calls: int = 10) -> float:
+    """Milliseconds of one fn() on the card for a function that updates
+    its inputs in place: ``restore()`` puts them back before each call,
+    outside the CUDA events around the call; the median over ``reps`` runs
+    of the sum over ``calls`` calls, over ``calls``, after a warm-up."""
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        events = []
+        for _ in range(calls):
+            restore()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        times.append(sum(a.elapsed_time(b) for a, b in events) / calls)
     return float(np.median(times))
 
 
@@ -483,10 +524,12 @@ def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
     return res
 
 
-def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
+def phase_kernels(M: int = SMALL, exchange: bool = True,
+                  pairing: bool = True) -> dict:
     """Each mode-C kernel against its plain version on the same CUDA
-    inputs at M x 20, the shapes of a session's first iteration, and the
-    exchange kernels on that iteration's result."""
+    inputs at M x 20, the shapes of a session's first iteration, the
+    pairing rounds on that iteration's sorted state, and the exchange
+    kernels on that iteration's result."""
     res = {}
     counts = torch.from_numpy(make_counts(M, seed=1)).to(DEV)
     cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
@@ -540,6 +583,8 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
                   8 * S * M + 20 * M,
                   library=lambda: torch.index_select(values, 1, order)))
     svals, ssizes, sslots = k
+    if pairing:
+        res["pairing_rounds"] = pairing_case((svals, ssizes, sslots, skey), h)
 
     parent0 = torch.arange(M, dtype=torch.int32, device=DEV)
     pk, pp = parent0.clone(), parent0.clone()
@@ -592,6 +637,74 @@ def phase_kernels(M: int = SMALL, exchange: bool = True) -> dict:
         finalize_deep()
     log_kernels(res, M)
     return res
+
+
+def pairing_bytes(M: int, stats) -> float:
+    """The bytes pairing_rounds must move at M positions, from its rounds'
+    (pairs formed, pairs merged): the keys read and merged_into written
+    once; each round every size read, both columns of each pair formed,
+    and for each merge both slots read and the left's values, both sizes,
+    merged_into and a parent entry written."""
+    return 8 * M + sum(4 * M + 8 * S * formed + (4 * S + 24) * merged
+                       for formed, merged in stats)
+
+
+def pairing_case(sorted_state, h: int) -> dict:
+    """pairing_rounds against its plain version on the first iteration's
+    sorted state, PAIR_ROUNDS rounds at 0.95 and at PAIR_LOW, with a parent
+    forest: every output exact. The kernel timed at both, the plain version
+    at 0.95, with the state restored before each call, beside the bound
+    counted from the pairs each round formed and merged; no single PyTorch
+    call computes the rounds. Returns the entry at 0.95."""
+    svals, ssizes, sslots, skey = sorted_state
+    M = svals.shape[1]
+    shift = kernels.free_bits(h)
+    ident = torch.arange(M, dtype=torch.int32, device=DEV)
+    out = {}
+    for thr in (0.95, PAIR_LOW):
+        state = [svals.clone(), ssizes.clone(), ident.clone()]
+
+        def restore():
+            state[0].copy_(svals)
+            state[1].copy_(ssizes)
+            state[2].copy_(ident)
+
+        def run(fn, **kw):
+            return fn(state[0], state[1], sslots, skey, shift, thr,
+                      PAIR_ROUNDS, None, state[2], **kw)
+
+        restore()
+        k = [x.clone() for x in run(kernels.pairing_rounds)] + [
+            state[2].clone()]
+        restore()
+        stats = []
+        p = list(run(kernels.pairing_rounds_plain, stats=stats)) + [state[2]]
+        err = _exact(f"pairing_rounds at {thr}", zip(k, p))
+        formed = sum(f for f, _ in stats)
+        merged = sum(m for _, m in stats)
+        if not merged:
+            raise AssertionError(f"pairing_rounds: no pair merged at {thr}")
+        # the dot product and two norms of each pair formed, the mean of
+        # each merge: float32 operations
+        r = dict(max_abs_err=err,
+                 ms=cuda_ms_restored(lambda: run(kernels.pairing_rounds),
+                                     restore),
+                 # 0.4 s a call at 2^24: timed at 0.95 alone
+                 plain_ms=cuda_ms_restored(
+                     lambda: run(kernels.pairing_rounds_plain), restore,
+                     reps=3, calls=2) if thr == 0.95 else None,
+                 library_ms=None,
+                 **bound(pairing_bytes(M, stats), 6 * S * formed
+                         + 3 * S * merged))
+        log(f"pairing_rounds at {M}, {thr}: {PAIR_ROUNDS} rounds formed "
+            f"{[f for f, _ in stats]} pairs and merged "
+            f"{[m for _, m in stats]} ({merged / max(formed, 1):.1%}); "
+            f"max_abs_err {err:.3g}  kernel {r['ms']:.4f} ms  plain "
+            + (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] else "not timed")
+            + f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library "
+            "none")
+        out[thr] = r
+    return out[0.95]
 
 
 def lsh_keys_cases(values, sizes, planes, h: int) -> None:
@@ -842,6 +955,14 @@ def check_clustering(tag: str, clust: str, counts: np.ndarray,
     through, each of which may move a value by half a float16 ulp. Returns
     (saved clusters, the largest centroid error)."""
     values, ids = clusterio.read_cluster_all(clust, S)
+    return len(ids), check_groups(tag, values, ids, counts, v_kmers,
+                                  f16_rounds)
+
+
+def check_groups(tag: str, values: np.ndarray, ids, counts: np.ndarray,
+                 v_kmers: list[float], f16_rounds: int = 0) -> float:
+    """check_clustering's checks on centroids [K, S] and their member
+    groups; returns the largest centroid error."""
     flat = ids.flat.astype(np.int64)
     if len(np.unique(flat)) != len(flat) or (flat >= counts.shape[1]).any():
         raise AssertionError(f"{tag}: a row id twice or out of range")
@@ -864,7 +985,7 @@ def check_clustering(tag: str, clust: str, counts: np.ndarray,
         if err > (1e-4 * max(1.0, np.abs(want).max())
                   + f16_rounds * 2**-11 * max(1.0, np.abs(rows).max())):
             raise AssertionError(f"{tag}: cluster {c} centroid off by {err}")
-    return len(ids), worst
+    return worst
 
 
 def phase_full(tmp: str) -> dict:
@@ -926,6 +1047,82 @@ def phase_full(tmp: str) -> dict:
     return dict(launches=launches, clusters=n_clusters, saved=saved,
                 cold=cold, warm=warm, counts=counts, v_kmers=v_kmers,
                 argv=argv, session_peak=session_peak)
+
+
+def pairing_session(counts, v_kmers, thr) -> tuple:
+    """engine.cluster_counts with merge="pairing" (PAIR_ROUNDS rounds, the
+    deep init pass a chain collapse) on a numpy count matrix: (result,
+    launches, LAST_SESSION, forest, wall seconds)."""
+    forest = {}
+    real_finalize = kernels.finalize
+
+    def keep_forest(vt, sz, sl, parent):
+        forest["parent"] = parent.clone()
+        return real_finalize(vt, sz, sl, parent)
+
+    kernels.finalize = keep_forest
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = engine.cluster_counts(counts, v_kmers, thr, seed=0,
+                                    rounds=PAIR_ROUNDS, deep_init=True,
+                                    merge="pairing", device=DEV)
+    finally:
+        kernels.finalize = real_finalize
+    wall = time.perf_counter() - t0
+    return (out, dict(kernels.launches), dict(engine.LAST_SESSION),
+            forest["parent"], wall)
+
+
+def phase_pairing(full: dict) -> dict:
+    """Phase 5d: phase 5's matrix through engine.cluster_counts with
+    merge="pairing" at phase 5's schedule (-I 20 -N 0.8, seed 0), checked
+    as phase 5's clustering; K10 launched once a pairing iteration; then
+    the same session on the first PAIR_SAME columns with K10 and with its
+    plain version substituted, whose members, sizes and centroids must be
+    byte-identical."""
+    i, floor = 20, 0.8
+    thr = np.concatenate([[0.95], 0.95 - (0.95 - floor) / i * np.arange(i)]
+                         ).astype(np.float32)
+    counts, v = full["counts"], full["v_kmers"]
+    (cents, sizes, groups), launches, st, parent, wall = pairing_session(
+        counts, v, thr)
+    iters = sum(name.startswith("iter[") for name, _ in st["programs"])
+    if launches["pairing_rounds"] != iters - 1 or launches[
+            "chain_collapse"] != 1:
+        raise AssertionError(f"pairing: {iters} iterations launched K10 "
+                             f"{launches['pairing_rounds']} and K3 "
+                             f"{launches['chain_collapse']} times")
+    worst = check_groups("pairing", cents, groups, counts, v)
+    deepest, mean = testdata.forest_depth(parent)
+    log(f"pairing: {len(groups)} clusters over {counts.shape[1]} rows at "
+        f"{PAIR_ROUNDS} rounds (phase 5's chain merge: {full['clusters']}, "
+        f"{len(groups) / full['clusters'] - 1:+.2%}); wall {wall:.3f} s, "
+        f"device {st['device_seconds']:.3f} s, pull "
+        f"{st['pull_seconds']:.3f} s; {iters} iterations, K10 launched "
+        f"{launches['pairing_rounds']} times; centroids of 1000 sampled "
+        f"clusters within {worst:.3g} of the host means; forest "
+        f"{deepest} deep at most, {mean:.3f} on average")
+    log(f"pairing: programs {st['programs']}")
+    part = np.ascontiguousarray(counts[:, :PAIR_SAME])
+    got = pairing_session(part, v, thr)[0]
+    real = kernels.pairing_rounds
+    kernels.pairing_rounds = kernels.pairing_rounds_plain
+    try:
+        want = pairing_session(part, v, thr)[0]
+    finally:
+        kernels.pairing_rounds = real
+    same = (np.array_equal(got[0].view(np.int32), want[0].view(np.int32))
+            and np.array_equal(got[1], want[1])
+            and np.array_equal(got[2].flat, want[2].flat)
+            and np.array_equal(got[2].offsets, want[2].offsets))
+    if not same:
+        raise AssertionError(f"pairing at {PAIR_SAME}: K10's session "
+                             "differs from its plain version's")
+    log(f"pairing at {PAIR_SAME}: {len(got[2])} clusters, byte-identical "
+        "with K10 and with pairing_rounds_plain")
+    return dict(launches={"pairing_rounds": launches["pairing_rounds"]},
+                clusters=len(groups))
 
 
 def phase_out_of_core(full: dict, tmp: str) -> dict:
@@ -1697,7 +1894,7 @@ def main() -> None:
 
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
-    phase_kernels(LATE, exchange=False)        # logged only
+    phase_kernels(LATE, exchange=False, pairing=False)   # logged only
     phase_kernels(OOC_BATCH)   # phase 5b's batch, a phase-7 rank's head
                                # capacity; logged only
     phase_kernels(FULL, exchange=False)        # logged only
@@ -1709,6 +1906,8 @@ def main() -> None:
             tempfile.TemporaryDirectory() as t6:
         full = phase_full(t5)
         ended("5")
+        pairing = phase_pairing(full)
+        ended("5d")
         ooc = phase_out_of_core(full, t5)
         ended("5b")
         with tempfile.TemporaryDirectory() as t5c:
@@ -1727,7 +1926,7 @@ def main() -> None:
             raise AssertionError(f"{name} was imported")
 
     launches = {**full["launches"], **mode_e["launches"],
-                **sharded["launches"]}
+                **sharded["launches"], **pairing["launches"]}
     line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **res[name])

@@ -77,7 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-thresh", type=int, default=d.batch_thresh,
                    help="out-of-core batch size in k-mer rows")
     p.add_argument("--merge-rounds", type=int, default=d.merge_rounds,
-                   help="pairing-merge rounds (unused: chain merge only)")
+                   help="rounds a pairing-merge iteration runs "
+                        "(engine merge=\"pairing\"); inert on the CLI, "
+                        "whose engine runs the chain merge, as in the "
+                        "reference")
     p.add_argument("--trace-dir", default="",
                    help="write a torch.profiler trace of the run here")
     p.add_argument("--read-scorer",

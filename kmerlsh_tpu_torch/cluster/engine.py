@@ -1,5 +1,5 @@
 """LSH clustering engine on PyTorch tensors (port of
-kmerlsh_tpu/cluster/engine.py, chain merge only).
+kmerlsh_tpu/cluster/engine.py).
 
 A session keeps the cluster profiles sample-major (values f32 [S, M]) with
 sizes and stable slot ids (int32 [M]) and a parent forest over the input
@@ -11,6 +11,10 @@ rows (int32 [cap0]). Each iteration, run eagerly one at a time:
      ``permute_state`` kernel moving the state into sorted order;
   3. ``chain_collapse`` kernel: neighbour chains collapse onto their last
      position; the dying slots are folded into the parent forest in place.
+     With ``merge="pairing"`` the ``pairing_rounds`` kernel runs R rounds
+     of adjacent rank pairs within each bucket instead (the reference keeps
+     it for comparison); with ``deep_init`` the first iteration is still a
+     chain collapse.
 
 After every iteration the host reads one int, the alive count: the sort put
 every dead column behind the alive ones, so the next iteration runs on the
@@ -80,13 +84,82 @@ def chain_collapse(values_t, sizes, keys, proj, threshold: float,
     return new_vt, new_size, new_mi, new_scs
 
 
+def _float_order(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) with the order of ``jax.lax.sort`` on float32:
+    zeros of either sign and subnormals (which XLA flushes) equal 0.0, and
+    every NaN equals the others and sorts last."""
+    b = x.contiguous().view(torch.int32).to(torch.int64)
+    tiny = torch.finfo(torch.float32).tiny
+    b = torch.where(x.abs() < tiny, 0,
+                    torch.where(torch.isnan(x), 0x7FC00000, b))
+    return torch.where(b < 0, -1 - b, b + 2**31)
+
+
+def _lex_order(keys: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jnp.lexsort((proj, keys))`` (keys first, then proj,
+    ties in input order) as four stable 16-bit ``sort_keys`` passes, least
+    significant first: int32 order [M]."""
+    words = (_float_order(proj), keys.to(torch.int64) + 2**31)
+    order = None
+    for word in words:
+        for shift in (0, 16):
+            digit = ((word >> shift) & 0xFFFF).to(torch.int32)
+            if order is not None:
+                digit = digit[order]
+            step = kernels.sort_keys(digit, 16)[1]
+            order = step if order is None else order[step]
+    return order
+
+
+def pairing_merge(values_t, sizes, keys, proj, threshold: float,
+                  rounds: int, merged_into=None, h: int | None = None,
+                  cur_slot=None, unsort: bool = True, parent=None):
+    """R pairing-merge rounds over key segments, the reference's contract
+    (kmerlsh_tpu/cluster/engine.py:pairing_merge): keys int32 [M] bucket
+    keys (BIG_KEY for dead slots), proj f32 [M] the secondary ordering.
+    With ``h``, the state is sorted by the combined key (keys < 2^h);
+    without, by (keys, proj). With ``unsort`` (values_t, sizes,
+    merged_into) come back in input slot order, ``merged_into[slot]`` the
+    slot that absorbed it (-1 while alive); without, in sorted position
+    order with a 4th output, ``cur_slot`` (position → stable slot id).
+    ``parent``, when given, gets each dying slot's absorber in place."""
+    m = values_t.shape[1]
+    dev = values_t.device
+    if cur_slot is None:
+        cur_slot = torch.arange(m, dtype=torch.int32, device=dev)
+    if h is None:
+        order = _lex_order(keys, proj)
+        skey, shift = keys[order], 0
+    else:
+        combined = lsh.combined_sort_key(keys, proj, sizes, h)
+        skey, order = kernels.sort_keys(combined, lsh.KEY_BITS)
+        shift = kernels.free_bits(h)
+    svt, ssize, scs = kernels.permute_state(values_t, sizes, cur_slot, order)
+    smi = None if merged_into is None else merged_into[order]
+    svt, ssize, smi = kernels.pairing_rounds(
+        svt, ssize, scs, skey, shift, threshold, rounds, smi,
+        parent)
+    if not unsort:
+        return svt, ssize, smi, scs
+    inv = torch.empty_like(order)
+    inv[order.long()] = torch.arange(m, dtype=torch.int32, device=dev)
+    return kernels.permute_state(svt, ssize, smi, inv)
+
+
 def _one_iteration(values_t, sizes, slots, parent, hyperplanes, threshold,
-                   h: int):
+                   h: int, merge: str = "chain", rounds: int = 4):
     """One LSH iteration: (values_t, sizes, slots) in sorted order, with the
-    merges folded into ``parent`` in place."""
+    merges folded into ``parent`` in place. ``merge`` picks the
+    within-bucket primitive: ``"chain"`` (one neighbour-chain collapse) or
+    ``"pairing"`` (``rounds`` adjacent rank-pair rounds)."""
     key, _ = kernels.lsh_keys(values_t, sizes, hyperplanes, h)
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     svt, ssize, sslots = kernels.permute_state(values_t, sizes, slots, order)
+    if merge == "pairing":
+        svt, ssize, _ = kernels.pairing_rounds(
+            svt, ssize, sslots, skey, kernels.free_bits(h), threshold,
+            rounds, None, parent)
+        return svt, ssize, sslots
     new_vt, new_size, new_slots, _ = kernels.chain_collapse(
         svt, ssize, sslots, skey, threshold, h, None, parent)
     return new_vt, new_size, new_slots
@@ -131,19 +204,26 @@ def _record(name: str, seconds: float) -> None:
 
 
 def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
-                   sync, defer_pull: bool = False):
+                   sync, defer_pull: bool = False, merge: str = "chain",
+                   rounds: int = 4, deep_init: bool = True):
     """Run every iteration of ``thr``, then finalize and pull. Returns
     (centroids [K, S], sizes [K], members), or with ``defer_pull`` the
-    (finish, stats) of :func:`_deferred`."""
+    (finish, stats) of :func:`_deferred`. With ``merge="pairing"`` every
+    iteration runs ``rounds`` pairing rounds, but with ``deep_init`` the
+    first, a chain collapse (the reference's deep init pass)."""
+    if merge not in ("chain", "pairing"):
+        raise ValueError(f"merge = {merge!r}: chain or pairing")
     na = int((sizes > 0).sum())
     for it, threshold in enumerate(thr):
         if na == 0:
             break
         h = _active_h_of(na)
         cap = values_t.shape[1]
+        kind = "chain" if deep_init and it == 0 else merge
         t0 = time.perf_counter()
         values_t, sizes, slots = _one_iteration(
-            values_t, sizes, slots, parent, planes(it), float(threshold), h)
+            values_t, sizes, slots, parent, planes(it), float(threshold), h,
+            kind, rounds)
         na_next = int((sizes > 0).sum())            # the one read per iteration
         _record(f"iter[{it}]@{cap}", time.perf_counter() - t0)
         # alive columns now all sit before na: the rest is dead tail
@@ -260,8 +340,11 @@ def cluster_counts(
     v_kmers: np.ndarray,           # f32 [S] per-sample coverage offsets
     thresholds: np.ndarray,        # f32 [I] anneal schedule (incl. init pass)
     seed: int = 0,
+    rounds: int = 4,
+    deep_init: bool = True,
     verbose: bool = False,
     n: int | None = None,          # real column count of a padded tensor
+    merge: str = "chain",
     device=None,
     hyperplanes: Hyperplanes | None = None,
     defer_pull: bool = False,
@@ -269,9 +352,11 @@ def cluster_counts(
     """Single-batch mode C: abundance transform, the schedule's iterations,
     finalize. A tensor ``counts`` runs where it lies (columns past ``n``
     must be zero: they are filtered out); a numpy matrix is uploaded to
-    ``device``. Returns (centroids [K, S], sizes [K], members) ordered by
-    smallest member id; with ``defer_pull``, (finish, stats) instead, where
-    ``finish()`` returns that triple (see :func:`_deferred`)."""
+    ``device``. ``merge``, ``rounds`` and ``deep_init`` as in
+    :func:`_drive_session`. Returns (centroids [K, S], sizes [K], members)
+    ordered by smallest member id; with ``defer_pull``, (finish, stats)
+    instead, where ``finish()`` returns that triple (see
+    :func:`_deferred`)."""
     if isinstance(counts, torch.Tensor):
         dev = counts.device
         if n is not None and n > counts.shape[1]:
@@ -300,7 +385,7 @@ def cluster_counts(
     _record(f"transform@{cap0}", time.perf_counter() - t0)
     return _drive_session(values_t, sizes, slots, parent, thr,
                           _planes_fn(seed, S, hyperplanes, dev), verbose,
-                          sync, defer_pull)
+                          sync, defer_pull, merge, rounds, deep_init)
 
 
 def cluster(
@@ -309,23 +394,32 @@ def cluster(
     min_similarity: float = 0.8,
     iterations: int = 100,
     seed: int = 0,
+    rounds: int = 4,
     verbose: bool = False,
     thresholds: np.ndarray | None = None,
+    init_rounds: int | None = None,
+    merge: str = "chain",
+    transposed: bool = False,
     device=None,
     hyperplanes: Hyperplanes | None = None,
 ):
-    """Cluster rows of ``values`` [N, S] with the annealed threshold
-    0.95 → min_similarity over ``iterations`` (or an explicit
-    ``thresholds`` schedule). Rows of size 0 are filtered. Returns
-    (centroids [K, S], sizes [K], members) ordered by smallest member id."""
+    """Cluster rows of ``values`` [N, S] ([S, N] with ``transposed``) with
+    the annealed threshold 0.95 → min_similarity over ``iterations`` (or an
+    explicit ``thresholds`` schedule). Rows of size 0 are filtered.
+    ``merge`` and ``rounds`` as in :func:`_drive_session`; any
+    ``init_rounds`` but None makes the first iteration the deep init pass
+    (a chain collapse), which matters only for ``merge="pairing"``.
+    Returns (centroids [K, S], sizes [K], members) ordered by smallest
+    member id."""
     if isinstance(values, torch.Tensor):
         dev = values.device
-        vt = values.T.to(torch.float32)
+        vt = (values if transposed else values.T).to(torch.float32)
     else:
         if device is None:
             raise ValueError("pass device= for numpy values")
         dev = torch.device(device)
-        vt = torch.from_numpy(np.array(values, np.float32).T).to(dev)
+        arr = np.array(values, np.float32)
+        vt = torch.from_numpy(arr if transposed else arr.T).to(dev)
     s, n = vt.shape
     _reset_session()
     if n == 0:
@@ -346,4 +440,5 @@ def cluster(
     parent = torch.arange(n, dtype=torch.int32, device=dev)
     return _drive_session(vt, sz, slots, parent, thr,
                           _planes_fn(seed, s, hyperplanes, dev), verbose,
-                          _sync_for(dev))
+                          _sync_for(dev), merge=merge, rounds=rounds,
+                          deep_init=init_rounds is not None)

@@ -28,6 +28,7 @@ main path went through the kernels.
 |                      |                        | the window gather                         |
 | exchange_fold        | csrc/exchange.cu       | parallel/dist.py _realign_to, the global  |
 |                      |                        | parent fold and the write-back            |
+| pairing_rounds       | csrc/pairing.cu        | engine.py pairing_merge (its rounds)      |
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 
 from kmerlsh_tpu_torch.ops import lsh, transform, ttest
 from kmerlsh_tpu_torch.ops.lsh import BIG_KEY
-from kmerlsh_tpu_torch.ops.segment import segment_starts
+from kmerlsh_tpu_torch.ops.segment import alive_rank_in_segment, segment_starts
 
 MAX_CHAIN_LOG = 15   # chains are cut at positions that are multiples of 2^15
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
@@ -57,11 +58,15 @@ SORT_THREADS = 256        # threads of a K9 block
 SORT_KEYS_A_THREAD = 16   # keys a K9 thread takes of its block's tile
 SORT_DIGIT_BITS = 8       # K9's widest digit: a thread a digit
 
+PAIR_THREADS = 256        # threads of a K10 block
+PAIR_ITEMS = 8            # consecutive positions a K10 thread scans
+
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "sort_keys": 0,
     "permute_state": 0,
     "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "key_directory": 0,
     "score_reads": 0, "exchange_window": 0, "exchange_fold": 0,
+    "pairing_rounds": 0,
 }
 
 
@@ -873,3 +878,111 @@ def exchange_fold(m_vals: torch.Tensor, m_sizes: torch.Tensor,
             sizes.data_ptr(), parent.data_ptr(), int(base), c0_loc,
             inv.data_ptr())
     launches["exchange_fold"] += 1
+
+
+# --- K10: pairing-merge rounds ----------------------------------------------------
+
+def pairing_plan(M: int) -> dict:
+    """Launch arithmetic of ``pairing_rounds`` at M positions: ``blocks``
+    tiles of ``tile`` positions, one block of ``threads`` threads a tile,
+    PAIR_ITEMS consecutive positions a thread; ``smem``, the bytes of an
+    apply block's shared memory (the tile's sizes, its keys with the one
+    before it, and each position's left partner). Positions are int32: M
+    stays a tile below 2^31."""
+    tile = PAIR_THREADS * PAIR_ITEMS
+    if not 0 <= M <= 2**31 - 1 - tile:
+        raise ValueError(f"pairing_rounds: {M} positions")
+    return dict(threads=PAIR_THREADS, tile=tile, blocks=-(-M // tile),
+                smem=4 * (3 * tile + 1))
+
+
+def pairing_rounds_plain(svals, ssizes, sslots, skey, shift: int,
+                         threshold: float, rounds: int, smi=None,
+                         parent=None, base: int = 0, stats=None):
+    """The reference's rounds (kmerlsh_tpu/cluster/engine.py:220-270),
+    computed by the right-role elements: a left's pair is its right's, and
+    both sides sum their cosine in the same order. ``stats``, a list, gets
+    (pairs formed, pairs merged) for each round."""
+    s, m = svals.shape
+    dev = svals.device
+    mi = smi if smi is not None else torch.full(
+        (m,), -1, dtype=torch.int32, device=dev)
+    starts = segment_starts(skey >> shift)
+    valid = skey != BIG_KEY
+    pos = torch.arange(m, device=dev)
+    for r in range(rounds):
+        alive = (ssizes > 0) & valid
+        rank = alive_rank_in_segment(alive, starts)
+        prev = torch.cummax(torch.where(alive, pos, -1), 0).values
+        prev_before = torch.cat([prev.new_full((1,), -1), prev[:-1]])
+        ph = r % 2
+        right = alive & (rank >= ph + 1) & ((rank - ph) % 2 == 1)
+        p = torch.nonzero(right).squeeze(1)
+        q = prev_before[p]
+        dot = torch.zeros(p.shape[0], dtype=torch.float32, device=dev)
+        nr = torch.zeros_like(dot)
+        nl = torch.zeros_like(dot)
+        for i in range(s):
+            vr, vl = svals[i, p], svals[i, q]
+            dot = dot + vr * vl
+            nr = nr + vr * vr
+            nl = nl + vl * vl
+        nn = torch.sqrt(nr * nl)
+        merge = dot / torch.where(nn > 0, nn, 1.0) >= threshold
+        if stats is not None:
+            stats.append((p.shape[0], int(merge.sum())))
+        p, q = p[merge], q[merge]
+        sr, sl = ssizes[p], ssizes[q]
+        svals[:, q] = ((svals[:, q] * sl.to(torch.float32)
+                        + svals[:, p] * sr.to(torch.float32))
+                       / (sl + sr).to(torch.float32))
+        ssizes[q] = sl + sr
+        ssizes[p] = 0
+        mi[p] = sslots[q]
+        if parent is not None:
+            parent[sslots[p].long() - base] = sslots[q]
+    return svals, ssizes, mi
+
+
+def pairing_rounds(svals: torch.Tensor, ssizes: torch.Tensor,
+                   sslots: torch.Tensor, skey: torch.Tensor, shift: int,
+                   threshold: float, rounds: int,
+                   smi: torch.Tensor | None = None,
+                   parent: torch.Tensor | None = None, base: int = 0):
+    """``rounds`` pairing-merge rounds over the sorted state, IN PLACE:
+    values f32 [S, M] contiguous, sizes int32 [M] and merged_into int32
+    [M] (allocated at -1 when ``smi`` is None) are updated; slots and keys
+    (int32 [M]) are read. Segments are runs of equal ``skey >> shift``
+    (``free_bits(h)`` on combined keys, 0 on bucket keys); a column is
+    alive where its size is positive and its key not BIG_KEY. Returns
+    (values, sizes, merged_into). When ``parent`` (int32, the entry of slot
+    s at s − ``base``) is given, each dying slot's parent is set to its
+    absorber's slot in place."""
+    if rounds < 0 or not 0 <= shift <= 30:
+        raise ValueError(f"pairing_rounds: rounds = {rounds}, shift = {shift}")
+    if not _on_cuda(svals, ssizes, sslots, skey, smi, parent):
+        return pairing_rounds_plain(svals, ssizes, sslots, skey, shift,
+                                    threshold, rounds, smi, parent, base)
+    _check(svals, torch.float32, "svals", 2)
+    if not svals.is_contiguous():
+        raise ValueError("svals must be contiguous")
+    S, M = svals.shape
+    for name, t in (("ssizes", ssizes), ("sslots", sslots), ("skey", skey),
+                    ("smi", smi), ("parent", parent)):
+        if t is not None:
+            _check(t, torch.int32, name)
+            if name != "parent" and t.shape[0] != M:
+                raise ValueError(f"{name}: want {M} entries, got {t.shape[0]}")
+    mi = smi if smi is not None else torch.full(
+        (M,), -1, dtype=torch.int32, device=svals.device)
+    if M and rounds:
+        plan = pairing_plan(M)
+        scratch = torch.empty(6 * plan["blocks"], dtype=torch.int32,
+                              device=svals.device)   # aggregates, carries
+        _launch("kl_pairing_rounds", svals.data_ptr(), S, M,
+                ssizes.data_ptr(), sslots.data_ptr(), skey.data_ptr(),
+                mi.data_ptr(), _ptr(parent), int(base), shift,
+                float(threshold), rounds, plan["tile"], plan["blocks"],
+                plan["smem"], scratch.data_ptr())
+        launches["pairing_rounds"] += 1
+    return svals, ssizes, mi

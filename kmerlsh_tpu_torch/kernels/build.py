@@ -51,6 +51,8 @@ SIGNATURES = {
                            _P, _P, _P),
     "kl_exchange_fold": (_P, _I, _L, _P, _P, _P, _P, _P, _I, _P, _L, _L, _P,
                          _P, _L, _L, _P, _P),
+    "kl_pairing_rounds": (_P, _I, _L, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I,
+                          _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 """Random-hyperplane LSH signatures and the fused int32 sort key.
 
-Port of kmerlsh_tpu/ops/lsh.py:signatures_t and
+Port of kmerlsh_tpu/ops/lsh.py (signatures_t, its row-major twin
+signatures, p_stable_signatures) and
 kmerlsh_tpu/cluster/engine.py:_combined_sort_key. These are the plain
 versions; on the card an iteration runs the ``lsh_keys`` kernel
 (kmerlsh_tpu_torch/kernels), which computes the same numbers in the same
@@ -44,6 +45,23 @@ def signatures_t(values_t: torch.Tensor, hyperplanes: torch.Tensor, h: int):
     for j in range(h):
         keys = keys | ((p[j] >= 0).to(torch.int32) << (h - 1 - j))
     return keys, p[H_MAX]
+
+
+def signatures(values: torch.Tensor, hyperplanes: torch.Tensor, h: int):
+    """Row-major twin of :func:`signatures_t`: values f32 [M, S], the same
+    key packing and the same order of summation."""
+    return signatures_t(values.T, hyperplanes, h)
+
+
+def p_stable_signatures(values: torch.Tensor, hyperplanes: torch.Tensor,
+                        h: int, b: float = 0.0, r: float = 1.0):
+    """p-stable LSH buckets floor((x·a + b) / r) on the planes [:, :H_MAX]
+    (int32 [M, H_MAX]; values f32 [M, S]), columns >= h zeroed."""
+    planes = hyperplanes[:, :H_MAX].to(values.device, torch.float32)
+    p = torch.matmul(values.to(torch.float32), planes)
+    q = torch.floor((p + b) / r).to(torch.int32)
+    i = torch.arange(H_MAX, device=values.device)
+    return torch.where(i[None, :] < h, q, 0)
 
 
 def combined_sort_key(keys: torch.Tensor, proj: torch.Tensor,

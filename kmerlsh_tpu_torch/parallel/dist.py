@@ -407,11 +407,15 @@ def cluster_sharded(
     thresholds: np.ndarray | None = None,
     exchange_cap: int = EXCHANGE_CAP,
     verbose: bool = False,
+    **_ignored,
 ):
     """Sharded version of ``engine.cluster``: the same annealed loop (0.95 →
     min_similarity over ``iterations``, or ``thresholds``), the rows of
     ``values`` [N, S] (the same on every rank) sharded over ``mesh``. Same
-    output contract, the same on every rank."""
+    output contract, the same on every rank. Other keywords of
+    ``engine.cluster`` (``merge``, ``rounds``, ...) are accepted and
+    ignored, as the reference's are: the sharded path runs the chain
+    merge."""
     mesh = mesh or make_mesh()
     values = np.asarray(values, dtype=np.float32)
     n, s = values.shape

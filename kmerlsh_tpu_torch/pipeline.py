@@ -153,10 +153,14 @@ def _cluster_fn(params: HyperParams, device, mesh=None):
         from kmerlsh_tpu_torch.cluster import engine
 
         def run(values, sizes, iterations, min_similarity, seed):
+            # the reference's rounds: 16 at least for a single-iteration
+            # pass; inert with the chain merge both packages run
+            rounds = max(params.merge_rounds, 16) if iterations == 1 \
+                else params.merge_rounds
             return engine.cluster(
                 values, sizes, min_similarity=min_similarity,
-                iterations=iterations, seed=seed, verbose=params.verbose,
-                device=device)
+                iterations=iterations, seed=seed, rounds=rounds,
+                verbose=params.verbose, device=device)
     return run
 
 

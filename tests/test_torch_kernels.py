@@ -527,3 +527,139 @@ def test_exchange_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         kernels.exchange_fold(vals[:, :16], i32, i32, i32, i32[:4], i32[:4],
                               vals, sz[:10], sz, 0)
+
+
+# --- K10 pairing_rounds ---------------------------------------------------------
+
+def _pair_state(dev, s, n, seg_max=5000, seed=0, dead_tail=100):
+    """A sorted state of n positions: segments (runs of one key >> 2) of 1
+    to seg_max positions, so that many cross the kernel's tiles, two
+    profiles a segment with noise 0.3 (about half the pairs merge at 0.5),
+    one column in 7 dead inside the segments and a dead tail of BIG_KEY."""
+    r = np.random.default_rng(seed)
+    live = max(n - dead_tail, 0)
+    lens = r.integers(1, seg_max + 1, 4 * live // seg_max + 4)
+    seg = np.repeat(np.arange(len(lens)), lens)[:live]
+    key = np.full(n, lsh.BIG_KEY, np.int32)
+    key[:live] = (seg << 2) | r.integers(0, 4, live)
+    prof = r.standard_normal((2 * len(lens), s)).astype(np.float32)
+    pick = 2 * np.append(seg, np.zeros(n - live, int)) + r.integers(0, 2, n)
+    vals = prof[pick] + 0.3 * r.standard_normal((n, s)).astype(np.float32)
+    sizes = r.integers(1, 6, n).astype(np.int32)
+    sizes[r.random(n) < 1 / 7] = 0
+    sizes[live:] = 0
+    slots = r.permutation(n).astype(np.int32)
+    # copies with fresh strides: a [S, 1] view keeps the stride of its
+    # size-1 axis, which the wrappers refuse
+    return [torch.from_numpy(a.copy()).to(dev)
+            for a in (vals.T, sizes, slots, key)]
+
+
+def _pair_same(sv, ss, sl, skey, shift, thr, rounds, smi=None, parent=None,
+               base=0):
+    """K10 and its plain version on copies of one state: every output equal
+    (both update in place), the parent forest too."""
+    def copies():
+        return (sv.clone(), ss.clone(), None if smi is None else smi.clone(),
+                None if parent is None else parent.clone())
+    kv, ks, kmi, kp = copies()
+    pv, ps, pmi, pp = copies()
+    before = kernels.launches["pairing_rounds"]
+    k = kernels.pairing_rounds(kv, ks, sl, skey, shift, thr, rounds, kmi, kp,
+                               base)
+    p = kernels.pairing_rounds_plain(pv, ps, sl, skey, shift, thr, rounds,
+                                     pmi, pp, base)
+    torch.cuda.synchronize()
+    assert kernels.launches["pairing_rounds"] - before == int(
+        rounds > 0 and sv.shape[1] > 0)
+    assert k[0] is kv and k[1] is ks
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if parent is not None:
+        assert torch.equal(kp, pp)
+    return k
+
+
+PAIR_S = [1, 3, 20, 100, 600]
+PAIR_M = [1, 4095, 4097, (1 << 20) + 7]
+
+
+@pytest.mark.parametrize("m", PAIR_M)
+@pytest.mark.parametrize("s", PAIR_S)
+def test_pairing_rounds_matches_plain(dev, s, m):
+    sv, ss, sl, skey = _pair_state(dev, s, m, seed=s + m,
+                                   dead_tail=min(100, m // 2))
+    with_extra = (s + m) % 2 == 0
+    smi = (torch.where(ss == 0, 5, -1).to(torch.int32) if with_extra
+           else None)
+    parent = (torch.arange(m, dtype=torch.int32, device=dev) if with_extra
+              else None)
+    k = _pair_same(sv, ss, sl, skey, 2, 0.5, 4, smi, parent)
+    if m > 4097:
+        assert int((k[2] >= 0).sum()) > int((ss == 0).sum())   # merges
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 4, 16])
+def test_pairing_rounds_on_one_segment_across_the_array(dev, rounds):
+    """2^20 + 7 columns of one profile in one segment: every pair merges,
+    so each round about halves the alive count across all the tiles."""
+    n = (1 << 20) + 7
+    r = np.random.default_rng(rounds)
+    vals = np.ones((S, n), np.float32) + 1e-3 * r.standard_normal(
+        (S, n)).astype(np.float32)
+    sv = torch.from_numpy(vals).to(dev)
+    ss = torch.ones(n, dtype=torch.int32, device=dev)
+    sl = torch.arange(n, dtype=torch.int32, device=dev)
+    skey = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    k = _pair_same(sv, ss, sl, skey, 0, 0.9, rounds,
+                   parent=torch.arange(n, dtype=torch.int32, device=dev))
+    alive = n
+    for r in range(rounds):   # ranks 0-1, 2-3, ... pair; then 1-2, 3-4, ...
+        alive = -(-alive // 2) if r % 2 == 0 else 1 + -(-(alive - 1) // 2)
+    assert int((k[1] > 0).sum()) == alive
+    assert int(k[1].sum()) == n
+
+
+def test_pairing_rounds_all_dead_and_empty(dev):
+    sv, ss, sl, skey = _pair_state(dev, S, 4097, seed=3)
+    k = _pair_same(sv, torch.zeros_like(ss), sl, skey, 2, 0.1, 4)
+    assert not (k[2] >= 0).any()
+    _pair_same(sv, ss, sl, torch.full_like(skey, lsh.BIG_KEY), 2, 0.1, 4)
+    e = torch.empty(0, dtype=torch.int32, device=dev)
+    _pair_same(torch.empty((S, 0), device=dev), e, e, e, 2, 0.5, 4)
+
+
+@pytest.mark.parametrize("base", [1, 70001 * 3])
+def test_pairing_rounds_folds_at_a_base(dev, base):
+    n = 70001
+    sv, ss, sl, skey = _pair_state(dev, S, n, seed=base)
+    sl = sl + base
+    parent = torch.arange(base, base + n, dtype=torch.int32, device=dev)
+    k = _pair_same(sv, ss, sl, skey, 2, 0.5, 4, None, parent, base)
+    assert int((k[2] >= 0).sum()) > 0
+
+
+def test_pairing_rounds_after_a_sort(dev):
+    """On an iteration's sorted state (lsh_keys, sort_keys, permute_state)
+    at h = 3, with the combined keys' free bits as the shift."""
+    sv, ss, sl, skey = _random_case(dev, 1 << 16)
+    for thr in (0.95, 0.3):
+        _pair_same(sv, ss, sl, skey, kernels.free_bits(3), thr, 4)
+
+
+def test_pairing_rounds_refuses_bad_input(dev):
+    sv, ss, sl, skey = _pair_state(dev, S, 4097)
+    bad = [
+        (sv.T, ss, sl, skey),                        # not contiguous
+        (sv.double(), ss, sl, skey),
+        (sv, ss.long(), sl, skey),
+        (sv, ss, sl.cpu(), skey),
+        (sv, ss[:-1], sl, skey),
+        (sv, ss, sl, skey[:-1]),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            kernels.pairing_rounds(*args, 2, 0.5, 4)
+    with pytest.raises(ValueError):
+        kernels.pairing_rounds(sv, ss, sl, skey, 2, 0.5, 4,
+                               smi=torch.full((4097,), -1, device=dev))

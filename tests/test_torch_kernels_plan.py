@@ -1,7 +1,7 @@
 """What the CUDA sources rely on, checked without the card: the launch
-arithmetic of the LSH-key, permute, chain-collapse and exchange-window
-kernels (``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``,
-``window_plan``), the grouping identity of finalize's steps, and the read
+arithmetic of the LSH-key, permute, chain-collapse, exchange-window and
+pairing kernels (``kernels.lsh_plan``, ``permute_plan``, ``chain_plan``,
+``window_plan``, ``pairing_plan``), the grouping identity of finalize's steps, and the read
 scorer's prefix directory and bucket search."""
 
 import numpy as np
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from kmerlsh_tpu_torch import kernels, testdata
+from kmerlsh_tpu_torch.kernels import build
 from kmerlsh_tpu_torch.kmer import codec
 from kmerlsh_tpu_torch.ops import reads
 
@@ -458,3 +459,53 @@ def test_directory_search_gives_the_plain_scores(kind, k):
         assert np.array_equal(got, want), vote
         if vote == 0.0:                 # a hit selects: some read has one
             assert got.any() == (kind != "empty")
+
+
+# --- K10 pairing_rounds -----------------------------------------------------
+
+@pytest.mark.parametrize("M", [0, 1, 2047, 2048, 2049, 4095, 4097, 70001,
+                               (1 << 20) + 7, 1 << 24,
+                               2**31 - 1 - 2048])
+def test_pairing_plan_covers_every_position_once(M):
+    plan = kernels.pairing_plan(M)
+    tile = plan["tile"]
+    assert tile == plan["threads"] * kernels.PAIR_ITEMS
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+    # tile b holds [b tile, (b + 1) tile): disjoint, and together [0, M)
+    assert plan["blocks"] * tile >= M > (plan["blocks"] - 1) * tile
+    # int32 positions up to the end of the last tile
+    assert plan["blocks"] * tile <= 2**31 - 1
+    # sizes, keys with the one before the tile, the left partners; within
+    # the 48 KB a block takes without opting in
+    assert plan["smem"] == 4 * (3 * tile + 1) <= 48 * 1024
+    # the carry scan's one block of 1024 threads takes every tile's
+    # aggregate in a few sequential steps
+    assert -(-plan["blocks"] // 1024) <= 1024
+
+
+def test_pairing_plan_refuses_positions_past_int32():
+    with pytest.raises(ValueError):
+        kernels.pairing_plan(2**31 - 2048)
+    with pytest.raises(ValueError):
+        kernels.pairing_plan(-1)
+
+
+def test_pairing_plan_fills_the_card():
+    # 132 SMs: at 2^20 and above, several blocks per SM
+    for M in (1 << 20, 1 << 22, 1 << 24):
+        assert kernels.pairing_plan(M)["blocks"] >= 3 * 132
+
+
+def test_pairing_plan_follows_the_source():
+    src = (build.CSRC / "pairing.cu").read_text()
+    assert f"#define KL_PAIR_THREADS {kernels.PAIR_THREADS}" in src
+    assert f"#define KL_PAIR_ITEMS {kernels.PAIR_ITEMS}" in src
+    assert "return 4 * (3 * tile + 1);" in src
+
+
+def test_pairing_rounds_refuses_bad_arguments():
+    z = torch.zeros(4, dtype=torch.int32)
+    v = torch.zeros((2, 4), dtype=torch.float32)
+    for shift, rounds in ((-1, 1), (31, 1), (0, -1)):
+        with pytest.raises(ValueError):
+            kernels.pairing_rounds(v, z, z, z, shift, 0.9, rounds)
