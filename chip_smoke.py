@@ -31,12 +31,19 @@ Phases:
      without the parent fold (as the global phase calls it) beside a copy
      of the bytes it streams, lsh_keys is held exact at h = 1 and 30 too,
      sort_keys exact and timed on that size's lsh_keys output (31 bits),
-     and the forest finalize takes is measured (depth; a pointer-jumping
-     round by torch indexing); at 2^20 also lsh_keys at 600 samples,
-     finalize on the forest of 21 iterations and sort_keys on its edge
-     cases (no key, one, a tile and one either side, all keys equal, all
-     BIG_KEY, random 1-bit flags); at 2^24 also sort_keys on finalize's
-     row keys (25 bits) and on the compaction's dead flags (1 bit); at
+     each sort's kernel launches (the runtime's launch calls under
+     torch.profiler) held to its plan's and logged with its route and its
+     passes' floor in bytes a key, and the forest finalize takes is
+     measured (depth; a pointer-jumping round by torch indexing); at 2^20
+     also lsh_keys at 600 samples, finalize on the forest of 21 iterations
+     and sort_keys on its edge cases (no key, one, a tile and one either
+     side, the one-launch route's limit and one either side, all keys
+     equal, all BIG_KEY, random 1-bit flags); sort_keys also on the
+     lsh_keys output at 2^14 (the sharded global phase's 4 x 4,096 keys)
+     and 2^16; at 2^24 also
+     sort_keys on finalize's row keys (25 bits), on the compaction's dead
+     flags (1 bit) and on finalize's cluster keys (25 bits), and the card
+     time of a sort by kernel on the 31-bit and the row keys; at
      2^20, 2^22 and 2^24 also pairing_rounds (K10) on the first
      iteration's sorted state, 4 rounds at 0.95 and at 0.5 with a parent
      forest, exact against its plain version, each call timed with the
@@ -157,6 +164,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 S = 20
 SMALL = 1 << 20
 LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
+SORT_SMALL = (1 << 14, 1 << 16)   # phase 3's smaller sorts: the sharded
+                                  # global phase's 4 x 4,096 keys, and 2^16
 FULL = 1 << 24
 OOC_BATCH = 1 << 22      # phase 5b's --batch-thresh: four batch passes
 FLUSH_ROWS = 1 << 20     # phase 5c's matrix
@@ -361,10 +370,22 @@ def log_kernels(res: dict, n: int) -> None:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library {lib}")
 
 
+def sort_floor(plan: dict) -> int:
+    """Bytes a key the sort's passes must move: the first scatter reads
+    keys and writes keys and indices, each later one reads both and writes
+    both; the histograms read the keys once more for every pass on the
+    one-sweep route, once a pass on the three-launch route, never on the
+    one-launch route (its tiles count their digits as they rank them)."""
+    hist = dict(zip(kernels.SORT_ROUTES, (0, 4, 4 * plan["passes"])))[
+        plan["route"]]
+    return hist + 12 + 16 * (plan["passes"] - 1)
+
+
 def sort_case(key: torch.Tensor, bits: int, what: str) -> dict:
     """sort_keys on ``key`` exact against its plain version, both timed
     beside torch.sort with int64 indices (the port's call before K9) and
-    the bound. Returns the kernel's entry."""
+    the bound; the launches of one sort counted. Returns the kernel's
+    entry."""
     M = key.numel()
     k = kernels.sort_keys(key, bits)
     p = kernels.sort_keys_plain(key, bits)
@@ -375,38 +396,123 @@ def sort_case(key: torch.Tensor, bits: int, what: str) -> dict:
                            12 * M,
                            library=lambda: torch.sort(key, stable=True)))
     plan = kernels.sort_plan(M, bits)
-    passes = plan["passes"]
-    # a histogram a pass; the first scatter reads keys and writes keys and
-    # indices, each later one reads both and writes both
-    floor = 4 * passes + 12 + 16 * (passes - 1)
-    log(f"sort_keys on {what}: {M} keys of {bits} bits in {passes} passes "
-        f"of {plan['digit']}-bit digits, exact; kernel {entry['ms']:.4f} ms"
-        f"  plain {entry['plain_ms']:.4f} ms  bound {entry['bound_ms']:.4f} "
-        f"ms  torch.sort {entry['library_ms']:.4f} ms; the passes' floor "
-        f"{floor} bytes a key, {bound(floor * M)['bound_ms']:.4f} ms")
+    launched = sort_launches(key, bits)
+    if launched != plan["launches"]:
+        raise AssertionError(f"sort_keys on {what}: {launched} kernel "
+                             f"launches, the plan says {plan['launches']}")
+    floor = sort_floor(plan)
+    log(f"sort_keys on {what}: {M} keys of {bits} bits in "
+        f"{plan['passes']} passes of {plan['digit']}-bit digits on the "
+        f"{plan['route']} route, {launched} launches, exact; kernel "
+        f"{entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  bound "
+        f"{entry['bound_ms']:.4f} ms  torch.sort {entry['library_ms']:.4f} "
+        f"ms  ratio {entry['ms'] / entry['library_ms']:.3f}; the passes' "
+        f"floor {floor} bytes a key, {bound(floor * M)['bound_ms']:.4f} ms")
     return entry
+
+
+def sort_events(key: torch.Tensor, bits: int, n: int = 1):
+    """n sorts of ``key`` under torch.profiler: ({kernel name: (card ms,
+    launches)}, the CUDA runtime's kernel launch calls)."""
+    from torch.autograd import DeviceType
+
+    kernels.sort_keys(key, bits)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as trace:
+        for _ in range(n):
+            kernels.sort_keys(key, bits)
+        torch.cuda.synchronize()
+    by, calls = {}, 0
+    for e in trace.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.removeprefix("void ").split("(")[0]
+            ms, c = by.get(name, (0.0, 0))
+            by[name] = (ms + (e.time_range.end - e.time_range.start) * 1e-3,
+                        c + 1)
+        elif e.name.startswith("cudaLaunch"):
+            calls += 1
+    return by, calls
+
+
+def sort_launches(key: torch.Tensor, bits: int) -> int:
+    """The kernel launches of one sort: the runtime's launch calls (the
+    cooperative one included). The trace may miss a kernel of so short a
+    window, never a launch call; every kernel it holds is K9's."""
+    by, calls = sort_events(key, bits)
+    ran = sum(c for _, c in by.values())
+    if ran > calls or any(not k.startswith("kl_sort") for k in by):
+        raise AssertionError(f"sort_keys: {calls} launch calls, kernels "
+                             f"{by}")
+    return calls
+
+
+def sort_split(key: torch.Tensor, bits: int, what: str) -> None:
+    """Log the card time of a sort by kernel (10 sorts traced)."""
+    by, _ = sort_events(key, bits, 10)
+    for name, (ms, c) in sorted(by.items()):
+        log(f"sort_keys on {what}, card time by kernel: {name} "
+            f"{ms / 10:.4f} ms in {c / 10:g} launches a sort")
+    log(f"sort_keys on {what}, card time: "
+        f"{sum(ms for ms, _ in by.values()) / 10:.4f} ms a sort")
 
 
 def sort_edge_cases() -> None:
     """sort_keys exact against its plain version on no key, one key, a
-    tile of keys and one either side, all keys equal, all BIG_KEY and
-    random 1-bit flags."""
+    tile of keys and one either side, the one-launch route's limit and one
+    either side (31 and 25 bits), all keys equal, all BIG_KEY and random
+    1-bit flags (at 2^20 and at the limit)."""
     tile = kernels.sort_plan(1, lsh.KEY_BITS)["tile"]
+    limit = kernels.SORT_ONE_MAX
     r = np.random.default_rng(10)
-    ties = r.integers(0, 1000, size=tile + 1) << 20   # every digit in use
+    ties = r.integers(0, 1000, size=limit + 1) << 20   # every digit in use
     cases = [("no key", [], lsh.KEY_BITS), ("one key", [5], lsh.KEY_BITS),
              ("a tile less one", ties[:tile - 1], lsh.KEY_BITS),
              ("a tile", ties[:tile], lsh.KEY_BITS),
-             ("a tile and one", ties, lsh.KEY_BITS),
+             ("a tile and one", ties[:tile + 1], lsh.KEY_BITS),
+             ("the one-launch limit less one", ties[:limit - 1],
+              lsh.KEY_BITS),
+             ("the one-launch limit", ties[:limit], lsh.KEY_BITS),
+             ("the one-launch limit and one", ties, lsh.KEY_BITS),
+             ("the one-launch limit, 25 bits", ties[:limit] >> 6, 25),
+             ("the one-launch limit and one, 25 bits", ties >> 6, 25),
              ("all keys equal", np.full(SMALL, 777), lsh.KEY_BITS),
              ("all BIG_KEY", np.full(SMALL, lsh.BIG_KEY), lsh.KEY_BITS),
-             ("random flags", r.integers(0, 2, size=SMALL), 1)]
+             ("random flags", r.integers(0, 2, size=SMALL), 1),
+             ("random flags at the limit", r.integers(0, 2, size=limit), 1)]
     for what, key, bits in cases:
         key = torch.from_numpy(np.asarray(key, np.int32)).to(DEV)
         _exact(f"sort_keys on {what}",
                zip(kernels.sort_keys(key, bits),
                    kernels.sort_keys_plain(key, bits)))
     log("sort_keys: exact on " + ", ".join(c[0] for c in cases))
+
+
+def phase_sort_small() -> None:
+    """sort_keys on the lsh_keys output at 2^14 (the sharded global
+    phase's 4 x 4,096 keys) and 2^16 keys, both on the one-launch
+    route."""
+    for M in SORT_SMALL:
+        counts = torch.from_numpy(make_counts(M, seed=1)).to(DEV)
+        cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+        values, sizes = kernels.abundance_transform(counts, (cov / M).float())
+        h = engine._active_h_of(int((sizes > 0).sum()))
+        key, _ = kernels.lsh_keys(values, sizes,
+                                  rng.draw_hyperplanes(0, 0, S).to(DEV), h)
+        sort_case(key, lsh.KEY_BITS, f"lsh_keys at {M}")
+
+
+def cluster_keys(sizes, slots, parent) -> torch.Tensor:
+    """finalize's second sort's keys on a compacted state: each alive
+    root's least member row, cap0 for a column that is no root."""
+    cap0 = parent.shape[0]
+    roots = parent.long()
+    while not torch.equal(nxt := roots[roots], roots):
+        roots = nxt
+    least = torch.full((cap0,), cap0, dtype=torch.int64, device=DEV)
+    least.scatter_reduce_(0, roots, torch.arange(cap0, device=DEV), "amin")
+    s = slots[sizes > 0].long()
+    return torch.where(roots[s] == s, least[s], cap0).to(torch.int32)
 
 
 def root_keys(sizes, slots, parent) -> torch.Tensor:
@@ -628,9 +734,15 @@ def phase_kernels(M: int = SMALL, exchange: bool = True,
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(DEV),
             0.95 - 0.01 * it, engine._active_h_of(na))
     if M == FULL:   # logged only
-        sort_case(root_keys(sz, sl, parent), M.bit_length(),
-                  f"finalize's row keys at {M}")
+        sort_split(key, lsh.KEY_BITS, f"lsh_keys at {M}")
+        rows = root_keys(sz, sl, parent)
+        sort_case(rows, M.bit_length(), f"finalize's row keys at {M}")
+        sort_split(rows, M.bit_length(), f"finalize's row keys at {M}")
         sort_case((sz == 0).to(torch.int32), 1, f"the dead flags at {M}")
+        vc, szc, slc = engine.compact_sort(vt, sz, sl)
+        sort_case(cluster_keys(szc, slc, parent), M.bit_length(),
+                  f"finalize's cluster keys at {M}")
+        del vc, szc, slc
     res["finalize"], na = finalize_timed(vt, sz, sl, parent)
     log(f"finalize: {na} clusters over {M} rows")
     if M == SMALL:
@@ -1894,6 +2006,7 @@ def main() -> None:
 
     res = phase_kernels()
     res.update(phase_kernels_mode_e())
+    phase_sort_small()
     phase_kernels(LATE, exchange=False, pairing=False)   # logged only
     phase_kernels(OOC_BATCH)   # phase 5b's batch, a phase-7 rank's head
                                # capacity; logged only

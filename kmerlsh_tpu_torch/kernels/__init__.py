@@ -54,9 +54,13 @@ WRS_MIN_BLOCKS = 4        # K6 blocks a SM holds, below which a warp takes
                           # fewer tiles to fit one more block
 SMEM_SM = 233472          # shared memory of one SM (1 KB of it a block)
 
-SORT_THREADS = 256        # threads of a K9 block
+SORT_THREADS = 256        # threads of a K9 tile block
 SORT_KEYS_A_THREAD = 16   # keys a K9 thread takes of its block's tile
 SORT_DIGIT_BITS = 8       # K9's widest digit: a thread a digit
+SORT_HIST_INTS = 1 << 19  # ints of K9's histogram rows, at most
+SORT_ONE_MAX = 1 << 18    # keys K9's one-launch route takes, at most
+SORT_ROUTES = ("one launch", "one sweep", "three launches a pass")
+                          # K9's routes, by their C code
 
 PAIR_THREADS = 256        # threads of a K10 block
 PAIR_ITEMS = 8            # consecutive positions a K10 thread scans
@@ -197,32 +201,67 @@ def lsh_keys(values_t: torch.Tensor, sizes: torch.Tensor,
 
 # --- K9: stable key sort -----------------------------------------------------
 
-def sort_plan(M: int, bits: int) -> dict:
+def _align(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def sort_plan(M: int, bits: int, route: str | None = None) -> dict:
     """Launch arithmetic of ``sort_keys`` on M keys of ``bits`` bits:
     ``passes`` passes of a ``digit``-bit digit (the fewest passes of at
-    most SORT_DIGIT_BITS bits, the digit as narrow as they allow), over
-    ``blocks`` tiles of ``tile`` keys, one block of SORT_THREADS threads a
-    tile; ``counts``, the ints of the digit-major per-tile counts (the
-    wrapper allocates 2^digit more for the digits' totals); ``smem``, the
-    bytes of a scatter block's shared memory: its tile's keys and payloads,
-    two ints a digit (its start in the tile and out there) and 16-bit
-    digit counters for each of its warps. Positions are int32: M stays a
-    tile below 2^31."""
+    most SORT_DIGIT_BITS bits, the digit as narrow as they allow) over
+    ``blocks`` tiles of ``tile`` keys, a block of SORT_THREADS threads a
+    tile, on a ``route`` of SORT_ROUTES (by default "one launch" up to
+    SORT_ONE_MAX keys, above it "one sweep", or "three launches a pass"
+    for one pass): "one launch", one cooperative launch that runs every
+    pass with grid-wide syncs; "one sweep", one histogram launch of every
+    pass over ``hist_blocks`` blocks, one launch of the digits' starts,
+    then a launch a pass (the first pass's tile offsets from the
+    histogram, a later one's by look-back); "three launches a pass", a
+    pass's histogram, its rows' scans and its scatter. ``smem``, the
+    bytes of a tile block's shared memory: its tile's keys and payloads,
+    two ints a digit (its start in the tile and out there) and 16-bit digit
+    counters for each of its warps; ``scratch``, the bytes of the one
+    scratch allocation (256-byte aligned parts: the tiles' counts, and the
+    digits' totals after them on the three-launch route; on the one-sweep
+    route also the 64-bit status words, 2^digit a tile, the
+    histogram rows, the starts and the tickets; the ping-pong pair of keys
+    and order where passes > 1); ``launches``. Positions are int32: M stays
+    a tile below 2^31."""
     if not 1 <= bits <= 31:
         raise ValueError(f"sort_keys: bits = {bits} outside [1, 31]")
     passes = -(-bits // SORT_DIGIT_BITS)
+    if route is None:
+        route = SORT_ROUTES[0 if M <= SORT_ONE_MAX else 1 if passes > 1
+                            else 2]
+    if route not in SORT_ROUTES:
+        raise ValueError(f"sort_keys: no route {route!r}")
+    one, sweep, three = (route == r for r in SORT_ROUTES)
+    if one and M > SORT_ONE_MAX:
+        raise ValueError(f"sort_keys: {M} keys in one launch")
     digit = -(-bits // passes)
-    tile = SORT_THREADS * SORT_KEYS_A_THREAD
-    if M > 2**31 - 1 - tile:   # int32 positions, the last tile's too
-        raise ValueError(f"sort_keys: {M} keys")
-    blocks = -(-M // tile)
     radix = 1 << digit
+    tile = SORT_THREADS * SORT_KEYS_A_THREAD
+    if M > 2**31 - 1 - tile:
+        raise ValueError(f"sort_keys: {M} keys")   # int32 positions
+    blocks = -(-M // tile)
     smem = 8 * tile + (8 + 2 * (SORT_THREADS // 32)) * radix
     if smem > SMEM_LIMIT:
         raise ValueError(f"sort_keys: {digit}-bit digits need {smem} bytes "
                          f"of shared memory, more than {SMEM_LIMIT}")
-    return dict(digit=digit, passes=passes, tile=tile, blocks=blocks,
-                counts=radix * blocks, smem=smem)
+    # a histogram block a tile, as far as SORT_HIST_INTS rows of every
+    # pass's bins allow
+    hist_blocks = (min(blocks, SORT_HIST_INTS // (passes * radix)) if sweep
+                   else 0)
+    scratch = (2 * _align(4 * M) if passes > 1 else 0) + _align(
+        4 * (blocks + three) * radix)
+    if sweep:
+        scratch += (_align(8 * blocks * radix)
+                    + _align(4 * hist_blocks * passes * radix)
+                    + _align(4 * passes * radix) + _align(4 * passes))
+    return dict(route=route, digit=digit, passes=passes, tile=tile,
+                blocks=blocks, hist_blocks=hist_blocks, smem=smem,
+                scratch=scratch,
+                launches=1 if one else 2 + passes if sweep else 3 * passes)
 
 
 def sort_keys_plain(key, bits: int):
@@ -230,10 +269,13 @@ def sort_keys_plain(key, bits: int):
     return skey, order.to(torch.int32)
 
 
-def sort_keys(key: torch.Tensor, bits: int):
+def sort_keys(key: torch.Tensor, bits: int,
+              scratch: torch.Tensor | None = None):
     """Stable ascending sort of int32 keys [M] in [0, 2^bits), 1 ≤ bits ≤
     31 → (the sorted keys, int32 order [M]: sorted[i] = key[order[i]],
-    ties in input order). The kernel reads only the low ``bits`` bits."""
+    ties in input order). The kernel reads only the low ``bits`` bits. It
+    runs on ``scratch`` (uint8 on the key's card, the plan's ``scratch``
+    bytes, whatever they hold) where one is given, else on a new one."""
     if not 1 <= bits <= 31:
         raise ValueError(f"sort_keys: bits = {bits} outside [1, 31]")
     if not _on_cuda(key):
@@ -242,17 +284,22 @@ def sort_keys(key: torch.Tensor, bits: int):
     M = key.shape[0]
     skey = torch.empty_like(key)
     order = torch.empty_like(key)
-    plan = sort_plan(M, bits)
     if M:
-        counts = torch.empty(plan["counts"] + (1 << plan["digit"]),
-                             dtype=torch.int32, device=key.device)
-        alt = (torch.empty((2, M), dtype=torch.int32, device=key.device)
-               if plan["passes"] > 1 else None)
-        _launch("kl_sort_keys", key.data_ptr(), M, bits, plan["digit"],
-                plan["passes"], plan["tile"], plan["blocks"], plan["smem"],
-                counts.data_ptr(), skey.data_ptr(), order.data_ptr(),
-                _ptr(None if alt is None else alt[0]),
-                _ptr(None if alt is None else alt[1]))
+        plan = sort_plan(M, bits)
+        if scratch is None:
+            scratch = torch.empty(plan["scratch"], dtype=torch.uint8,
+                                  device=key.device)
+        else:
+            _check(scratch, torch.uint8, "scratch")
+            if (scratch.device != key.device
+                    or scratch.numel() != plan["scratch"]):
+                raise ValueError(f"sort_keys: want {plan['scratch']} "
+                                 f"scratch bytes on {key.device}")
+        _launch("kl_sort_keys", key.data_ptr(), M, bits,
+                SORT_ROUTES.index(plan["route"]), plan["digit"],
+                plan["passes"], plan["tile"], plan["blocks"],
+                plan["hist_blocks"], plan["smem"], scratch.data_ptr(),
+                plan["scratch"], skey.data_ptr(), order.data_ptr())
         launches["sort_keys"] += 1
     return skey, order
 

@@ -105,21 +105,37 @@ def test_permute_exact(dev, s):
 
 
 SORT_TILE = kernels.SORT_THREADS * kernels.SORT_KEYS_A_THREAD
+ONE_MAX = kernels.SORT_ONE_MAX
 
 
 def _sort_same(key, bits):
-    k = kernels.sort_keys(key, bits)
+    """sort_keys exact against its plain version; then twice in a row on
+    one scratch whose every byte starts at 0xFF (a status word's tag then
+    reads as every pass's inclusive count): the zeroing and the tags hold
+    across sorts."""
     p = kernels.sort_keys_plain(key, bits)
+    k = kernels.sort_keys(key, bits)
     assert k[1].dtype == torch.int32
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if not key.numel():
+        return
+    plan = kernels.sort_plan(key.numel(), bits)
+    scratch = torch.full((plan["scratch"],), 255, dtype=torch.uint8,
+                         device=key.device)
+    for _ in range(2):
+        k = kernels.sort_keys(key, bits, scratch)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, SORT_TILE - 1, SORT_TILE,
-                               SORT_TILE + 1, 70001, (1 << 20) + 7])
+                               SORT_TILE + 1, ONE_MAX - 1, ONE_MAX,
+                               ONE_MAX + 1, 70001,
+                               (1 << 20) + 7, (1 << 24) + 5])
 @pytest.mark.parametrize("bits", [1, 7, 11, 12, 25, 31])
 def test_sort_keys_exact(dev, n, bits):
     """Heavy ties (300 distinct keys over the bits, a tenth at the top
-    key) on either side of a tile's length."""
+    key) on either side of a tile's length and of the one-launch route's
+    limit, and over 4,097 tiles whose look-backs chain."""
     r = np.random.default_rng(n + bits)
     distinct = r.integers(0, 1 << bits, size=300)
     key = distinct[r.integers(0, 300, size=n)]
@@ -150,6 +166,12 @@ def test_sort_keys_refuses_bad_input(dev):
                       (key.view(10, 10), 31), (key, 0), (key, 32)):
         with pytest.raises(ValueError):
             kernels.sort_keys(bad, bits)
+    size = kernels.sort_plan(100, 31)["scratch"]
+    for bad in (torch.empty(size - 1, dtype=torch.uint8, device=dev),
+                torch.empty(size, dtype=torch.int8, device=dev),
+                torch.empty(size, dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            kernels.sort_keys(key, 31, bad)
 
 
 def _random_case(dev, n):

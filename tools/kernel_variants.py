@@ -5,7 +5,7 @@ card, in one process.
     python3 tools/kernel_variants.py
     python3 tools/kernel_variants.py fold
     python3 tools/kernel_variants.py wrs [PARENT_ROOT]
-    python3 tools/kernel_variants.py sort
+    python3 tools/kernel_variants.py sort [PARENT_ROOT]
 
 Each variant is a list of substitutions in ``kmerlsh_tpu_torch/csrc``; the
 sources of every variant are compiled with the flags of
@@ -96,24 +96,40 @@ its own entry point's arguments), that kernel and PARENT_WRS_VARIANTS:
                      (Σv² − x̄Σv: not the plain version's rounding), so each
                      value is loaded once.
 
-``sort`` times the key sort (sort_keys) on chip_smoke.py phase 3's
-lsh_keys output at 2^20, 2^21, 2^22 and 2^24 x 20 (31 bits) and on the
-1-bit dead flags of the 2^24 state after six iterations, beside
-torch.sort (int64 indices, the port's call before the kernel), two
-rounds alternating, each output checked equal to the plain version's;
-then the committed kernel's card time by kernel at 2^24 (torch.profiler).
-SORT_VARIANTS:
+``sort`` times the key sort (sort_keys) at each size chip_smoke.py phase
+3 sorts: the lsh_keys output at 2^14, 2^16, 2^20, 2^21, 2^22 and 2^24 x
+20 (31 bits; and at 2^17 and 2^18) and, on the 2^24 state after six iterations, finalize's row
+keys (25 bits), the dead flags (1 bit) and finalize's cluster keys (25
+bits), beside torch.sort (int64 indices, the port's call before the
+kernel), two rounds (the second in the reverse order), each output checked
+equal to the plain version's; then the card time by kernel at 2^24 of
+the committed kernel and, given PARENT_ROOT, of the parent's. Each
+variant is sort_keys.cu alone in a library of its own, with the plan its
+defines need (SORT_VARIANTS):
 
-  committed    the sources as they are;
-  match-any    a warp's lanes with one digit found by __match_any_sync
-               instead of a ballot a digit bit;
+  committed          the source as it is, on the route its plan takes
+                     and on each route (the one-launch route up to its
+                     limit);
+  window-1, window-8, window-16
+                     a look-back step reads 1, 8 or 16 predecessors'
+                     words instead of 4;
   keys-8, keys-12, keys-24
-               8, 12 or 24 keys a thread instead of 16 (tiles of 2048,
-               3072 or 6144 keys);
-  digit-7      the committed sources on a plan of at most 7-bit digits
-               (five passes of 31 bits);
-  bounds-3     the scatter held to 85 registers a thread (three blocks a
-               SM).
+                     8, 12 or 24 keys a thread of a tile block instead of
+                     16 (tiles of 2048, 3072 or 6144 keys);
+  digit-9            tile blocks of 512 threads of 8 keys with digits of
+                     up to 9 bits (25 bits in three passes, 31 in four);
+  hist-2^18          histogram rows of at most 2^18 ints instead of 2^19
+                     (256 blocks at 31 bits instead of 512);
+  bounds-3, bounds-4 the one-sweep scatter held to 85 or 64 registers a
+                     thread (three or four blocks a SM);
+  overlap            the look-back passes on persistent blocks, each
+                     copying its next tile in (cp.async) while it ranks
+                     and writes out this one;
+  launch-2^20        the one-launch route up to 2^20 keys (its plan's
+                     route up to there);
+
+and, given PARENT_ROOT, the parent's sort_keys.cu through its own entry
+point (the earlier design: three launches a pass).
 
 A variant that does not compile is reported and left out.
 """
@@ -845,38 +861,261 @@ def main_wrs(parent: str | None) -> None:
     build._lib = None
 
 
-BALLOTS = """  unsigned m = 0xFFFFFFFFu;
-#pragma unroll
-  for (int b = 0; b <= KL_SORT_MAX_DIGIT; ++b) {
-    if (b > digit) break;
-    const unsigned bit = (dg >> b) & 1u;
-    const unsigned bal = __ballot_sync(0xFFFFFFFFu, bit);
-    m &= bit ? bal : ~bal;
+def _sort_define(name: str, value) -> tuple:
+    """A substitution of sort_keys.cu's #define name (its committed text
+    found in the source)."""
+    import re
+
+    text = (build.CSRC / "sort_keys.cu").read_text()
+    line = re.search(rf"^#define {name} .*$", text, re.M).group(0)
+    return ("sort_keys.cu", line, f"#define {name} {value}")
+
+
+SWEEP_BOUNDS = "__launch_bounds__(KL_SORT_THREADS) kl_sort_onesweep"
+# overlap: the look-back passes on persistent blocks (as many as the card
+# holds at once), each taking its next tile's ticket and copying that
+# tile's keys and payloads into shared memory (cp.async) while it ranks,
+# looks back and writes out this one
+OVERLAP_KERNEL = """// Start the copies of tile `tile` of kin (and vin) into in_k (in_v).
+__device__ __forceinline__ void kl_tile_fetch(const unsigned* kin,
+                                              const int* vin, int M, int tile,
+                                              bool wide, unsigned* in_k,
+                                              int* in_v) {
+  const int base = tile * KL_SORT_TILE, n = min(KL_SORT_TILE, M - base);
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * KL_SORT_THREADS) {
+    if (wide && i + 4 <= n) {
+      kl_cp_async16(in_k + i, kin + base + i);
+      if (vin) kl_cp_async16(in_v + i, vin + base + i);
+    } else {
+      for (int u = i; u < i + 4 && u < n; ++u) {
+        kl_cp_async4(in_k + u, kin + base + u);
+        if (vin) kl_cp_async4(in_v + u, vin + base + u);
+      }
+    }
   }
-  return m;"""
-KEYS = "#define KL_SORT_KPT 16"
-SCATTER = "__launch_bounds__(KL_SORT_THREADS) kl_sort_scatter"
-SORT_VARIANTS = {
-    "committed": [],
-    "match-any": [("sort_keys.cu", BALLOTS,
-                   "  return __match_any_sync(0xFFFFFFFFu, dg);")],
-    **{f"keys-{n}": [("sort_keys.cu", KEYS, f"#define KL_SORT_KPT {n}")]
-       for n in (8, 12, 24)},
-    "digit-7": [],
-    "bounds-3": [("sort_keys.cu", SCATTER,
-                  SCATTER.replace("THREADS)", "THREADS, 3)"))],
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
 }
-# the plan each variant's library needs: (keys a thread, widest digit)
-SORT_PLANS = {"keys-8": (8, 8), "keys-12": (12, 8), "keys-24": (24, 8),
-              "digit-7": (16, 7)}
+
+__global__ void __launch_bounds__(KL_SORT_THREADS) kl_sort_overlap(
+    const unsigned* __restrict__ kin, const int* __restrict__ vin, int M,
+    int tiles, int shift, int digit, int pass, const int* __restrict__ start,
+    unsigned long long* status, int* ticket, unsigned* __restrict__ kout,
+    int* __restrict__ vout) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_next;
+  const int R = 1 << digit, t = threadIdx.x, lane = t & 31, w = t >> 5;
+  unsigned* in_k = (unsigned*)smem;
+  int* in_v = (int*)(in_k + KL_SORT_TILE);
+  unsigned* sk = (unsigned*)(in_v + KL_SORT_TILE);
+  int* sv = (int*)(sk + KL_SORT_TILE);
+  int* loc = sv + KL_SORT_TILE;
+  int* gml = loc + R;
+  unsigned short* cnt = (unsigned short*)(gml + R);
+  const bool wide =
+      (((unsigned long long)kin | (unsigned long long)vin) & 15) == 0;
+  const unsigned own = 2 * pass + 2;
+  if (t == 0) s_next = atomicAdd(ticket, 1);
+  __syncthreads();
+  int tile = s_next;
+  if (tile >= tiles) return;
+  kl_tile_fetch(kin, vin, M, tile, wide, in_k, in_v);
+  for (;;) {
+    __syncthreads();
+    if (t == 0) s_next = atomicAdd(ticket, 1);
+    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");
+    __syncthreads();
+    const int base = tile * KL_SORT_TILE, n = min(KL_SORT_TILE, M - base);
+    const int next = s_next;
+    unsigned k[KL_SORT_KPT];
+    int v[KL_SORT_KPT], rk[KL_SORT_KPT];
+    const int wl = w * 32 * KL_SORT_KPT + lane;
+#pragma unroll
+    for (int r = 0; r < KL_SORT_KPT; ++r) {
+      const int i = wl + 32 * r;
+      k[r] = i < n ? in_k[i] : 0u;
+      v[r] = i >= n ? 0 : vin ? in_v[i] : base + i;
+    }
+    __syncthreads();
+    if (next < tiles) kl_tile_fetch(kin, vin, M, next, wide, in_k, in_v);
+    const int c = kl_tile_rank<KL_SORT_THREADS, KL_SORT_KPT>(k, n, shift,
+                                                             digit, cnt, rk);
+    volatile unsigned long long* mine =
+        status + (long long)tile * R + (t < R ? t : 0);
+    if (t < R)
+      *mine = ((unsigned long long)(tile ? own : own + 1) << 32) |
+              (unsigned)c;
+    int total;
+    const int l = kl_block_scan(c, &total);
+    if (t < R) loc[t] = l;
+    __syncthreads();
+    kl_tile_stage<KL_SORT_KPT>(k, v, rk, n, shift, digit, loc, cnt, sk, sv);
+    if (t < R) {
+      unsigned before = 0;
+      if (tile) {
+        before = kl_look_back(status, tile, R, t, own);
+        *mine = ((unsigned long long)(own + 1) << 32) | (before + c);
+      }
+      gml[t] = start[t] + (int)before - l;
+    }
+    __syncthreads();
+    kl_tile_write<KL_SORT_THREADS>(sk, sv, n, shift, R - 1, gml, kout, vout);
+    if (next >= tiles) break;
+    tile = next;
+  }
+}
+
+// The blocks of kl_sort_overlap the card holds at once, at most `tiles`
+// (its shared memory allowed once).
+static int kl_sort_resident(int tiles) {
+  static int blocks = [] {
+    const int most = 16 * KL_SORT_TILE + KL_SORT_SMEM(0, KL_SORT_THREADS / 32,
+                                                      KL_SORT_MAX_DIGIT);
+    cudaFuncSetAttribute(kl_sort_overlap,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kl_sort_overlap,
+                                                  KL_SORT_THREADS, most);
+    return sms * (per_sm > 0 ? per_sm : 1);
+  }();
+  return blocks < tiles ? blocks : tiles;
+}
+
+// --- route 0: one cooperative launch"""
+OVERLAP = [
+    ("sort_keys.cu", "// --- route 0: one cooperative launch", OVERLAP_KERNEL),
+    ("sort_keys.cu", """      kl_sort_onesweep<true><<<blocks, KL_SORT_THREADS, smem, st>>>(
+          kin, vin, m, blocks, p * digit, digit, p, start + p * R, heads,
+          words, ticket + p, kout, vout);""", """      kl_sort_overlap<<<kl_sort_resident(blocks), KL_SORT_THREADS,
+                        smem + 8 * KL_SORT_TILE, st>>>(
+          kin, vin, m, blocks, p * digit, digit, p, start + p * R, words,
+          ticket + p, kout, vout);"""),
+]
+# variant → (its substitutions of sort_keys.cu, the kernels attributes its
+# plan needs)
+SORT_VARIANTS = {
+    "committed": ([], {}),
+    **{f"window-{w}": ([_sort_define("KL_SORT_WINDOW", w)], {})
+       for w in (1, 8, 16)},
+    **{f"keys-{n}": ([_sort_define("KL_SORT_KPT", n)],
+                     {"SORT_KEYS_A_THREAD": n}) for n in (8, 12, 24)},
+    "digit-9": ([_sort_define("KL_SORT_THREADS", 512),
+                 _sort_define("KL_SORT_KPT", 8),
+                 _sort_define("KL_SORT_MAX_DIGIT", 9)],
+                {"SORT_THREADS": 512, "SORT_KEYS_A_THREAD": 8,
+                 "SORT_DIGIT_BITS": 9}),
+    "hist-2^18": ([_sort_define("KL_SORT_HIST_INTS", 1 << 18)],
+                  {"SORT_HIST_INTS": 1 << 18}),
+    "overlap": (OVERLAP, {}),
+    **{f"bounds-{n}": ([("sort_keys.cu", SWEEP_BOUNDS,
+                         SWEEP_BOUNDS.replace("THREADS)", f"THREADS, {n})"))],
+                       {}) for n in (3, 4)},
+    "launch-2^20": ([_sort_define("KL_SORT_ONE_MAX", 1 << 20)],
+                    {"SORT_ONE_MAX": 1 << 20}),
+}
+# variants also timed on each route their plan allows
+SORT_ROUTED = ("committed",)
+# the parent's entry point (the earlier design: three launches a pass)
+PARENT_SORT_SIGNATURE = (build._P, build._L, build._I, build._I, build._I,
+                         build._I, build._I, build._I, build._P, build._P,
+                         build._P, build._P, build._P, build._P)
 
 
-def main_sort() -> None:
-    libs = build_variants(SORT_VARIANTS)
-    plan0 = kernels.SORT_KEYS_A_THREAD, kernels.SORT_DIGIT_BITS
-    build._lib = libs["committed"]
+def build_alone(csrc, source: str, subs: dict, tag: str) -> dict:
+    """One library a variant of csrc/source, built alone; a variant whose
+    text the source does not hold, or that does not compile, is left
+    out."""
+    base = (csrc / source).read_text()
+    work = WORK / tag
+    work.mkdir(parents=True, exist_ok=True)
+    shutil.copy(csrc / "common.cuh", work)
+    jobs = {}
+    for name, pairs in subs.items():
+        text = base
+        for _, old, new in pairs:
+            if old not in text:
+                cs.log(f"variant {name} left out: {old[:60]!r} not in "
+                       f"{csrc / source}")
+                break
+            text = text.replace(old, new)
+        else:
+            path = work / f"{name}.cu"
+            path.write_text(text)
+            jobs[name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                 str(work / f"lib_{name}.so"), str(path)],
+                stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, job in jobs.items():
+        _, err = job.communicate()
+        if job.returncode:
+            cs.log(f"variant {name} left out: nvcc failed:\n{err[-2000:]}")
+        else:
+            libs[name] = ctypes.CDLL(str(work / f"lib_{name}.so"))
+    return libs
+
+
+def committed_sort(lib: ctypes.CDLL, attrs: dict, route: str | None = None):
+    """kernels.sort_keys on library lib, with the kernels attributes attrs
+    set for the call (and the plan's route forced to route)."""
+    fn = lib.kl_sort_keys
+    fn.argtypes, fn.restype = build.SIGNATURES["kl_sort_keys"], ctypes.c_int
+    plan_of = kernels.sort_plan
+
+    def call(key, bits):
+        saved = {a: getattr(kernels, a) for a in attrs}
+        build._lib = lib
+        for a, value in attrs.items():
+            setattr(kernels, a, value)
+        if route:
+            kernels.sort_plan = lambda M, b, r=None: plan_of(M, b, route)
+        try:
+            return kernels.sort_keys(key, bits)
+        finally:
+            kernels.sort_plan = plan_of
+            for a, value in saved.items():
+                setattr(kernels, a, value)
+
+    return call
+
+
+def parent_sort(lib: ctypes.CDLL):
+    """The parent's K9 (the earlier design: a histogram, a row scan and a
+    scatter a pass over tiles of 4096 keys, at most 8-bit digits) through
+    its entry point in lib, with its plan."""
+    fn = lib.kl_sort_keys
+    fn.argtypes, fn.restype = PARENT_SORT_SIGNATURE, ctypes.c_int
+
+    def call(key, bits):
+        M = key.numel()
+        passes = -(-bits // 8)
+        digit = -(-bits // passes)
+        tile, R = 4096, 1 << digit
+        blocks = -(-M // tile)
+        skey, order = torch.empty_like(key), torch.empty_like(key)
+        counts = torch.empty((blocks + 1) * R, dtype=torch.int32,
+                             device=key.device)
+        alt = torch.empty((2, M), dtype=torch.int32, device=key.device)
+        err = fn(key.data_ptr(), M, bits, digit, passes, tile, blocks,
+                 8 * tile + 24 * R, counts.data_ptr(), skey.data_ptr(),
+                 order.data_ptr(), alt[0].data_ptr(), alt[1].data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent kl_sort_keys: CUDA error {err}")
+        return skey, order
+
+    return call
+
+
+def sort_inputs() -> list:
+    """(what, keys, bits) at each size chip_smoke.py phase 3 sorts: the
+    lsh_keys output at 2^14, 2^16, 2^20, 2^21, 2^22 and 2^24 x 20 (31
+    bits), and at 2^17 and 2^18 (where the routes meet); at 2^24 after six iterations finalize's row keys (25 bits), the
+    dead flags (1 bit) and finalize's cluster keys (25 bits)."""
     cases = []
-    for M in (cs.SMALL, cs.LATE, cs.OOC_BATCH, cs.FULL):
+    for M in (*cs.SORT_SMALL, 1 << 17, 1 << 18, cs.SMALL, cs.LATE,
+              cs.OOC_BATCH, cs.FULL):
         counts = torch.from_numpy(cs.make_counts(M, seed=1)).to(cs.DEV)
         cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
         vt, sz = kernels.abundance_transform(counts, (cov / M).float())
@@ -886,51 +1125,99 @@ def main_sort() -> None:
         cases.append((f"lsh_keys at {M}", key, 31))
         if M == cs.FULL:
             sl = torch.arange(M, dtype=torch.int32, device=cs.DEV)
+            parent = sl.clone()
             for it in range(6):
                 vt, sz, sl = engine._one_iteration(
-                    vt, sz, sl, sl.clone(), rng.draw_hyperplanes(0, it, cs.S)
+                    vt, sz, sl, parent, rng.draw_hyperplanes(0, it, cs.S)
                     .to(cs.DEV), 0.95 - 0.01 * it,
                     engine._active_h_of(int((sz > 0).sum())))
+            bits = M.bit_length()
+            cases.append((f"finalize's row keys at {M}",
+                          cs.root_keys(sz, sl, parent), bits))
             cases.append((f"dead flags at {M}", (sz == 0).to(torch.int32), 1))
+            _, szc, slc = engine.compact_sort(vt, sz, sl)
+            cases.append((f"finalize's cluster keys at {M}",
+                          cs.cluster_keys(szc, slc, parent), bits))
         del vt, sz
-    for what, key, bits in cases:
-        want = kernels.sort_keys_plain(key, bits)
-        cs.log(f"sort {what}: torch.sort "
-               f"{cs.cuda_ms(lambda: torch.sort(key, stable=True)):.4f} ms")
-        for rnd in range(2):
-            for name, lib in libs.items():
-                build._lib = lib
-                (kernels.SORT_KEYS_A_THREAD,
-                 kernels.SORT_DIGIT_BITS) = SORT_PLANS.get(name, plan0)
-                cs.log(f"sort {what}, variant {name}, round {rnd}: " + timed(
-                    kernels.sort_keys, (key, bits), want))
-    build._lib = libs["committed"]
-    kernels.SORT_KEYS_A_THREAD, kernels.SORT_DIGIT_BITS = plan0
-    key = cases[-2][1]
-    kernels.sort_keys(key, 31)
-    torch.cuda.synchronize()
+    return cases
+
+
+def log_split(what: str, fn, key, bits) -> None:
+    """The card time of ten sorts by kernel (torch.profiler)."""
     from torch.autograd import DeviceType
 
+    fn(key, bits)
+    torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as trace:
         for _ in range(10):
-            kernels.sort_keys(key, 31)
+            fn(key, bits)
         torch.cuda.synchronize()
     by = {}
     for e in trace.events():
         if e.device_type == DeviceType.CUDA:
-            ms, n = by.get(e.name.split("(")[0], (0.0, 0))
-            by[e.name.split("(")[0]] = (
-                ms + (e.time_range.end - e.time_range.start) * 1e-3, n + 1)
+            name = e.name.removeprefix("void ").split("(")[0]
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + (e.time_range.end - e.time_range.start) * 1e-3,
+                        n + 1)
     for name, (ms, n) in sorted(by.items()):
-        cs.log(f"sort at {cs.FULL}, card time by kernel: {name}: "
-               f"{ms / 10:.4f} ms a sort in {n / 10:g} launches")
+        cs.log(f"sort {what}, card time by kernel: {name}: {ms / 10:.4f} ms "
+               f"a sort in {n / 10:g} launches")
+    cs.log(f"sort {what}, card time: "
+           f"{sum(ms for ms, _ in by.values()) / 10:.4f} ms a sort")
+
+
+def main_sort(parent: str | None) -> None:
+    from pathlib import Path
+
+    libs = build_alone(build.CSRC, "sort_keys.cu",
+                       {n: v[0] for n, v in SORT_VARIANTS.items()}, "sort")
+    calls, limit = {}, {}
+    for name, lib in libs.items():
+        attrs = SORT_VARIANTS[name][1]
+        calls[name] = committed_sort(lib, attrs)
+        limit[name] = 2**31
+        if name in SORT_ROUTED:
+            for route in kernels.SORT_ROUTES:
+                calls[f"{name}, {route}"] = committed_sort(lib, attrs, route)
+                limit[f"{name}, {route}"] = (
+                    attrs.get("SORT_ONE_MAX", kernels.SORT_ONE_MAX)
+                    if route == kernels.SORT_ROUTES[0] else 2**31)
+    if parent:
+        csrc = Path(parent).resolve() / "kmerlsh_tpu_torch" / "csrc"
+        for name, lib in build_alone(csrc, "sort_keys.cu", {"parent": []},
+                                     "sort_parent").items():
+            calls[name] = parent_sort(lib)
+            limit[name] = 2**31
+    build._lib = None   # the inputs on the kernels as committed
+    cases = sort_inputs()
+    names = list(calls)
+    for what, key, bits in cases:
+        want = kernels.sort_keys_plain(key, bits)
+        for rnd in range(2):
+            cs.log(f"sort {what}, round {rnd}: torch.sort "
+                   f"{cs.cuda_ms(lambda: torch.sort(key, stable=True)):.4f}"
+                   f" ms")
+            for name in (names if rnd == 0 else names[::-1]):
+                if key.numel() > limit[name]:
+                    continue
+                try:
+                    cs.log(f"sort {what}, variant {name}, round {rnd}: "
+                           + timed(calls[name], (key, bits), want))
+                except (RuntimeError, ValueError) as e:
+                    cs.log(f"sort {what}, variant {name}: {e}")
+    for what, key, bits in cases:
+        if key.numel() == cs.FULL:
+            for name in ("committed", "parent"):
+                if name in calls:
+                    log_split(f"{what} ({bits} bits), {name}", calls[name],
+                              key, bits)
     build._lib = None
 
 
 def main() -> None:
-    if sys.argv[1:] == ["sort"]:
-        main_sort()
+    if sys.argv[1:2] == ["sort"]:
+        main_sort(sys.argv[2] if len(sys.argv) > 2 else None)
         return
     if sys.argv[1:] == ["fold"]:
         main_fold()
