@@ -47,8 +47,13 @@ Phases:
      2^20, 2^22 and 2^24 also pairing_rounds (K10) on the first
      iteration's sorted state, 4 rounds at 0.95 and at 0.5 with a parent
      forest, exact against its plain version, each call timed with the
-     state restored outside its CUDA events, its bound counted from the
-     pairs each round formed and merged (no library call);
+     state restored outside its CUDA events, its bound the one-pass floor
+     (pairing_floor_bytes) with the per-round count beside it (no
+     library call), its launches a call (the wrapper's count and the
+     runtime's launch calls under torch.profiler, held to its plan's 2)
+     and the segments longer than its plan's C logged; at 2^20 also
+     K10 on 2^16 columns of 600 samples (C = 32: many segments take its
+     cooperative launch), exact and timed;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -411,28 +416,36 @@ def sort_case(key: torch.Tensor, bits: int, what: str) -> dict:
     return entry
 
 
-def sort_events(key: torch.Tensor, bits: int, n: int = 1):
-    """n sorts of ``key`` under torch.profiler: ({kernel name: (card ms,
-    launches)}, the CUDA runtime's kernel launch calls)."""
+def traced_launches(fn, n: int = 1):
+    """n calls of fn() under torch.profiler, after one untraced: ({kernel
+    name: (card ms, launches)}, the CUDA runtime's kernel launch calls);
+    memsets are not kernels."""
     from torch.autograd import DeviceType
 
-    kernels.sort_keys(key, bits)
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as trace:
         for _ in range(n):
-            kernels.sort_keys(key, bits)
+            fn()
         torch.cuda.synchronize()
     by, calls = {}, 0
     for e in trace.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.removeprefix("void ").split("(")[0]
+            if name.startswith("Memset"):
+                continue
             ms, c = by.get(name, (0.0, 0))
             by[name] = (ms + (e.time_range.end - e.time_range.start) * 1e-3,
                         c + 1)
         elif e.name.startswith("cudaLaunch"):
             calls += 1
     return by, calls
+
+
+def sort_events(key: torch.Tensor, bits: int, n: int = 1):
+    """n sorts of ``key`` under torch.profiler (traced_launches)."""
+    return traced_launches(lambda: kernels.sort_keys(key, bits), n)
 
 
 def sort_launches(key: torch.Tensor, bits: int) -> int:
@@ -691,6 +704,8 @@ def phase_kernels(M: int = SMALL, exchange: bool = True,
     svals, ssizes, sslots = k
     if pairing:
         res["pairing_rounds"] = pairing_case((svals, ssizes, sslots, skey), h)
+        if M == SMALL:
+            pairing_wide()
 
     parent0 = torch.arange(M, dtype=torch.int32, device=DEV)
     pk, pp = parent0.clone(), parent0.clone()
@@ -751,26 +766,83 @@ def phase_kernels(M: int = SMALL, exchange: bool = True,
     return res
 
 
-def pairing_bytes(M: int, stats) -> float:
-    """The bytes pairing_rounds must move at M positions, from its rounds'
-    (pairs formed, pairs merged): the keys read and merged_into written
-    once; each round every size read, both columns of each pair formed,
-    and for each merge both slots read and the left's values, both sizes,
-    merged_into and a parent entry written."""
-    return 8 * M + sum(4 * M + 8 * S * formed + (4 * S + 24) * merged
+def first_sorted_state(M: int, seed: int = 1) -> tuple:
+    """The sorted state of a session's first iteration at M x 20 as phase
+    3 makes it (make_counts(M, seed), the abundance transform, lsh_keys at
+    the data's h, sort_keys, permute_state): (values, sizes, slots, keys,
+    h)."""
+    counts = torch.from_numpy(make_counts(M, seed=seed)).to(DEV)
+    cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
+    values, sizes = kernels.abundance_transform(
+        counts, (cov / M).to(torch.float32))
+    del counts
+    h = engine._active_h_of(int((sizes > 0).sum()))
+    key, _ = kernels.lsh_keys(values, sizes,
+                              rng.draw_hyperplanes(0, 0, S).to(DEV), h)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
+    slots = torch.arange(M, dtype=torch.int32, device=DEV)
+    return (*kernels.permute_state(values, sizes, slots, order), skey, h)
+
+
+def pairing_bytes(M: int, stats, s: int = S) -> float:
+    """The bytes pairing_rounds would move at M positions if every round
+    read each pair's columns (the earlier three-launch design's count,
+    kept beside the floor), from its rounds' (pairs formed, pairs
+    merged): the keys read and merged_into written once; each round every
+    size read, both columns of each pair formed, and for each merge both
+    slots read and the left's values, both sizes, merged_into and a
+    parent entry written."""
+    return 8 * M + sum(4 * M + 8 * s * formed + (4 * s + 24) * merged
                        for formed, merged in stats)
+
+
+def pairing_floor_bytes(skey, vals_in, vals_out, sizes_in, sizes_out,
+                        mi) -> float:
+    """The least bytes pairing_rounds moves on these inputs, whatever the
+    rounds: each alive column (S floats), every size and key read once;
+    the changed columns' values written as the 32-byte sectors that hold
+    them (their values lie M apart: S sectors for each 8 aligned positions
+    holding a changed column, each sector once), each size that changed
+    written, and for each death (mi: merged_into from -1) both slots read
+    and its merged_into and parent entry written."""
+    s = vals_in.shape[0]
+    alive = int(((sizes_in > 0) & (skey != lsh.BIG_KEY)).sum())
+    cols = torch.nonzero((vals_out != vals_in).any(dim=0)).squeeze(1)
+    sectors = s * int(torch.unique(cols // 8).numel())
+    changed = int((sizes_out != sizes_in).sum())
+    return (4 * s * alive + 8 * skey.numel() + 32 * sectors + 4 * changed
+            + 16 * int((mi >= 0).sum()))
+
+
+def segment_stats(skey, shift: int, C: int) -> tuple[int, int, int]:
+    """(segments, segments longer than C, positions in them) of the sorted
+    keys (runs of equal key >> shift)."""
+    g = skey >> shift
+    starts = torch.ones_like(g, dtype=torch.bool)
+    starts[1:] = g[1:] != g[:-1]
+    first = torch.nonzero(starts).squeeze(1)
+    lens = torch.diff(torch.cat([first, first.new_tensor([g.numel()])]))
+    long = lens > C
+    return int(lens.numel()), int(long.sum()), int(lens[long].sum())
 
 
 def pairing_case(sorted_state, h: int) -> dict:
     """pairing_rounds against its plain version on the first iteration's
     sorted state, PAIR_ROUNDS rounds at 0.95 and at PAIR_LOW, with a parent
     forest: every output exact. The kernel timed at both, the plain version
-    at 0.95, with the state restored before each call, beside the bound
-    counted from the pairs each round formed and merged; no single PyTorch
-    call computes the rounds. Returns the entry at 0.95."""
+    at 0.95, with the state restored before each call, beside its bound
+    (pairing_floor_bytes) and the per-round count; its launches a call
+    (the wrapper's count and the runtime's launch calls under
+    torch.profiler) and the segments longer than its plan's C logged; no
+    single PyTorch call computes the rounds. Returns the entry at 0.95."""
     svals, ssizes, sslots, skey = sorted_state
-    M = svals.shape[1]
+    s, M = svals.shape
     shift = kernels.free_bits(h)
+    plan = kernels.pairing_plan(s, M)
+    segs, n_long, in_long = segment_stats(skey, shift, plan["C"])
+    log(f"pairing_rounds at {M} x {s}: h = {h}, shift {shift}, C = "
+        f"{plan['C']}: {segs} segments, {n_long} longer than C holding "
+        f"{in_long} positions ({in_long / M:.4%})")
     ident = torch.arange(M, dtype=torch.int32, device=DEV)
     out = {}
     for thr in (0.95, PAIR_LOW):
@@ -786,8 +858,10 @@ def pairing_case(sorted_state, h: int) -> dict:
                       PAIR_ROUNDS, None, state[2], **kw)
 
         restore()
+        on_card = kernels.card_launches["pairing_rounds"]
         k = [x.clone() for x in run(kernels.pairing_rounds)] + [
             state[2].clone()]
+        calls = kernels.card_launches["pairing_rounds"] - on_card
         restore()
         stats = []
         p = list(run(kernels.pairing_rounds_plain, stats=stats)) + [state[2]]
@@ -796,6 +870,19 @@ def pairing_case(sorted_state, h: int) -> dict:
         merged = sum(m for _, m in stats)
         if not merged:
             raise AssertionError(f"pairing_rounds: no pair merged at {thr}")
+        # merged_into given, so that the wrapper fills nothing in the window
+        mi = torch.full((M,), -1, dtype=torch.int32, device=DEV)
+        restore()
+        by, traced = traced_launches(lambda: kernels.pairing_rounds(
+            state[0], state[1], sslots, skey, shift, thr, PAIR_ROUNDS, mi,
+            state[2]))
+        if calls != plan["launches"] or traced != calls or any(
+                not name.startswith("kl_pair") for name in by):
+            raise AssertionError(f"pairing_rounds: {calls} launches counted, "
+                                 f"{traced} launch calls traced, kernels "
+                                 f"{by}; the plan says {plan['launches']}")
+        floor = pairing_floor_bytes(skey, svals, k[0], ssizes, k[1], k[2])
+        per_round = bound(pairing_bytes(M, stats, s))["bound_ms"]
         # the dot product and two norms of each pair formed, the mean of
         # each merge: float32 operations
         r = dict(max_abs_err=err,
@@ -806,17 +893,38 @@ def pairing_case(sorted_state, h: int) -> dict:
                      lambda: run(kernels.pairing_rounds_plain), restore,
                      reps=3, calls=2) if thr == 0.95 else None,
                  library_ms=None,
-                 **bound(pairing_bytes(M, stats), 6 * S * formed
-                         + 3 * S * merged))
-        log(f"pairing_rounds at {M}, {thr}: {PAIR_ROUNDS} rounds formed "
-            f"{[f for f, _ in stats]} pairs and merged "
+                 **bound(floor, 6 * s * formed + 3 * s * merged))
+        log(f"pairing_rounds at {M} x {s}, {thr}: {PAIR_ROUNDS} rounds "
+            f"formed {[f for f, _ in stats]} pairs and merged "
             f"{[m for _, m in stats]} ({merged / max(formed, 1):.1%}); "
             f"max_abs_err {err:.3g}  kernel {r['ms']:.4f} ms  plain "
             + (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] else "not timed")
-            + f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library "
-            "none")
+            + f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; one pass, "
+            f"{floor / 1e6:.1f} MB) [per round {per_round:.4f} ms]  library "
+            f"none; {calls} launches a call")
         out[thr] = r
     return out[0.95]
+
+
+def pairing_wide() -> None:
+    """pairing_rounds at WIDE_S samples on 2^16 columns (C = 32, so that
+    many segments take the cooperative launch): 2^12 profiles with noise
+    0.1 through lsh_keys, sort_keys and permute_state at h = 16, then
+    pairing_case (exact, timed; logged only)."""
+    n = 1 << 16
+    r = np.random.default_rng(WIDE_S)
+    prof = r.normal(size=(WIDE_S, n >> 4)).astype(np.float32)
+    wide = prof[:, r.integers(0, n >> 4, n)] + 0.1 * r.normal(
+        size=(WIDE_S, n)).astype(np.float32)
+    wide = torch.from_numpy(wide).to(DEV)
+    wsz = torch.ones(n, dtype=torch.int32, device=DEV)
+    h = engine._active_h_of(n)
+    key, _ = kernels.lsh_keys(wide, wsz, rng.draw_hyperplanes(0, 0, WIDE_S)
+                              .to(DEV), h)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
+    slots = torch.arange(n, dtype=torch.int32, device=DEV)
+    sv, ss, sl = kernels.permute_state(wide, wsz, slots, order)
+    pairing_case((sv, ss, sl, skey), h)
 
 
 def lsh_keys_cases(values, sizes, planes, h: int) -> None:

@@ -62,8 +62,15 @@ SORT_ONE_MAX = 1 << 18    # keys K9's one-launch route takes, at most
 SORT_ROUTES = ("one launch", "one sweep", "three launches a pass")
                           # K9's routes, by their C code
 
-PAIR_THREADS = 256        # threads of a K10 block
-PAIR_ITEMS = 8            # consecutive positions a K10 thread scans
+PAIR_THREADS = 512        # threads of a K10 short-segment block
+PAIR_PER_SM = 2           # K10 short-segment blocks a SM, where they fit
+PAIR_CAP_MAX = 2048       # K10's capacity C (positions a window), at most
+PAIR_STATIC = 1024        # bytes of a K10 block's static shared memory, at
+                          # most
+PAIR_LONG_THREADS = 256   # threads of a K10 long-segment block
+PAIR_LONG_ITEMS = 8       # consecutive positions such a thread scans
+PAIR_LONG_GRID_MAX = 1024 # blocks of K10's cooperative launch, at most
+PAIR_M_MAX = 2**31 - 1 - 8192   # K10's positions, at most (int32)
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "sort_keys": 0,
@@ -72,11 +79,15 @@ launches: dict[str, int] = {
     "score_reads": 0, "exchange_window": 0, "exchange_fold": 0,
     "pairing_rounds": 0,
 }
+# kernel launches on the card of the wrappers that make more than one a
+# call (K10: its plan's "launches")
+card_launches: dict[str, int] = {"pairing_rounds": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, card_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def free_bits(h: int) -> int:
@@ -929,18 +940,43 @@ def exchange_fold(m_vals: torch.Tensor, m_sizes: torch.Tensor,
 
 # --- K10: pairing-merge rounds ----------------------------------------------------
 
-def pairing_plan(M: int) -> dict:
-    """Launch arithmetic of ``pairing_rounds`` at M positions: ``blocks``
-    tiles of ``tile`` positions, one block of ``threads`` threads a tile,
-    PAIR_ITEMS consecutive positions a thread; ``smem``, the bytes of an
-    apply block's shared memory (the tile's sizes, its keys with the one
-    before it, and each position's left partner). Positions are int32: M
-    stays a tile below 2^31."""
-    tile = PAIR_THREADS * PAIR_ITEMS
-    if not 0 <= M <= 2**31 - 1 - tile:
-        raise ValueError(f"pairing_rounds: {M} positions")
-    return dict(threads=PAIR_THREADS, tile=tile, blocks=-(-M // tile),
-                smem=4 * (3 * tile + 1))
+def pairing_capacity(S: int) -> int:
+    """K10's capacity C at S samples: the most positions (a multiple of
+    32, at most PAIR_CAP_MAX) a window may hold so that a block's range of
+    up to 2C - 1 positions, staged at 4S + 11 bytes a position (values,
+    size, key, half a packed pair, flags) in 2C + 4 places, fits
+    PAIR_PER_SM blocks on a SM, else one; 0 where not even 32 positions
+    fit one block."""
+    per = 4 * S + 11
+    for budget in (SMEM_SM // PAIR_PER_SM - 1024 - PAIR_STATIC,
+                   SMEM_LIMIT - PAIR_STATIC):
+        C = min(PAIR_CAP_MAX, (budget // per - 4) // 2 // 32 * 32)
+        if C >= 32:
+            return C
+    return 0
+
+
+def pairing_plan(S: int, M: int) -> dict:
+    """Launch arithmetic of ``pairing_rounds`` at S samples and M
+    positions. Launch (1): ``blocks`` windows of ``C`` positions
+    (:func:`pairing_capacity`; one block at C = 0), ``threads`` threads and
+    ``smem`` bytes a block. Launch (2): one cooperative launch of
+    ``long_threads`` threads a block on ``long_tile`` positions a tile.
+    ``scratch``: int32 entries (the list's count, each window's first
+    start, the long segments' starts, ends, tiles and tile bases, the
+    cooperative blocks' and the tiles' aggregates). ``launches``: kernel
+    launches a call. Positions are int32."""
+    if S < 0 or not 0 <= M <= PAIR_M_MAX:
+        raise ValueError(f"pairing_rounds: S = {S}, {M} positions")
+    C = pairing_capacity(S)
+    blocks = -(-M // C) if C else 1
+    long_tile = PAIR_LONG_THREADS * PAIR_LONG_ITEMS
+    tiles = -(-M // long_tile) + blocks
+    return dict(C=C, threads=PAIR_THREADS, blocks=blocks,
+                smem=(2 * C + 4) * (4 * S + 11) if C else 0,
+                long_threads=PAIR_LONG_THREADS, long_tile=long_tile,
+                scratch=2 + 5 * blocks + 3 * PAIR_LONG_GRID_MAX + 3 * tiles,
+                launches=2)
 
 
 def pairing_rounds_plain(svals, ssizes, sslots, skey, shift: int,
@@ -1023,13 +1059,14 @@ def pairing_rounds(svals: torch.Tensor, ssizes: torch.Tensor,
     mi = smi if smi is not None else torch.full(
         (M,), -1, dtype=torch.int32, device=svals.device)
     if M and rounds:
-        plan = pairing_plan(M)
-        scratch = torch.empty(6 * plan["blocks"], dtype=torch.int32,
-                              device=svals.device)   # aggregates, carries
+        plan = pairing_plan(S, M)
+        scratch = torch.empty(plan["scratch"], dtype=torch.int32,
+                              device=svals.device)
         _launch("kl_pairing_rounds", svals.data_ptr(), S, M,
                 ssizes.data_ptr(), sslots.data_ptr(), skey.data_ptr(),
                 mi.data_ptr(), _ptr(parent), int(base), shift,
-                float(threshold), rounds, plan["tile"], plan["blocks"],
-                plan["smem"], scratch.data_ptr())
+                float(threshold), rounds, plan["C"], plan["blocks"],
+                plan["smem"], scratch.data_ptr(), plan["scratch"])
         launches["pairing_rounds"] += 1
+        card_launches["pairing_rounds"] += plan["launches"]
     return svals, ssizes, mi

@@ -53,7 +53,7 @@ SIGNATURES = {
     "kl_exchange_fold": (_P, _I, _L, _P, _P, _P, _P, _P, _I, _P, _L, _L, _P,
                          _P, _L, _L, _P, _P),
     "kl_pairing_rounds": (_P, _I, _L, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I,
-                          _I, _I, _P, _P),
+                          _I, _I, _P, _L, _P),
 }
 
 _lock = threading.Lock()

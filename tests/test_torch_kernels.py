@@ -587,13 +587,16 @@ def _pair_same(sv, ss, sl, skey, shift, thr, rounds, smi=None, parent=None,
     kv, ks, kmi, kp = copies()
     pv, ps, pmi, pp = copies()
     before = kernels.launches["pairing_rounds"]
+    on_card = kernels.card_launches["pairing_rounds"]
     k = kernels.pairing_rounds(kv, ks, sl, skey, shift, thr, rounds, kmi, kp,
                                base)
     p = kernels.pairing_rounds_plain(pv, ps, sl, skey, shift, thr, rounds,
                                      pmi, pp, base)
     torch.cuda.synchronize()
-    assert kernels.launches["pairing_rounds"] - before == int(
-        rounds > 0 and sv.shape[1] > 0)
+    called = int(rounds > 0 and sv.shape[1] > 0)
+    assert kernels.launches["pairing_rounds"] - before == called
+    # two kernel launches a call, whatever the rounds
+    assert kernels.card_launches["pairing_rounds"] - on_card == 2 * called
     assert k[0] is kv and k[1] is ks
     for a, b in zip(k, p):
         assert torch.equal(a, b)
@@ -667,6 +670,63 @@ def test_pairing_rounds_after_a_sort(dev):
     sv, ss, sl, skey = _random_case(dev, 1 << 16)
     for thr in (0.95, 0.3):
         _pair_same(sv, ss, sl, skey, kernels.free_bits(3), thr, 4)
+
+
+def _segments_state(dev, s, lens, seed=0, noise=0.05):
+    """A sorted state whose segments (runs of one key >> 2) have the given
+    lengths, one profile a segment with noise (most pairs merge at 0.5),
+    one column in 9 dead."""
+    r = np.random.default_rng(seed)
+    seg = np.repeat(np.arange(len(lens)), lens)
+    n = len(seg)
+    key = ((seg << 2) | r.integers(0, 4, n)).astype(np.int32)
+    prof = r.standard_normal((len(lens), s)).astype(np.float32)
+    vals = prof[seg] + noise * r.standard_normal((n, s)).astype(np.float32)
+    sizes = r.integers(1, 6, n).astype(np.int32)
+    sizes[r.random(n) < 1 / 9] = 0
+    slots = r.permutation(n).astype(np.int32)
+    return [torch.from_numpy(a.copy()).to(dev)
+            for a in (vals.T, sizes, slots, key)]
+
+
+@pytest.mark.parametrize("extra", ["C - 1", "C", "C + 1", "2C + 1"])
+@pytest.mark.parametrize("s", [20, 600])
+def test_pairing_rounds_on_segments_that_straddle_windows(dev, s, extra):
+    """Segments of C - 1, C, C + 1 and 2C + 1 positions (C the plan's
+    window at S) between short ones of 1 to 3, so that their starts fall
+    at every offset in a window and they cross window edges; with a parent
+    forest at a base."""
+    C = kernels.pairing_plan(s, 1)["C"]
+    length = {"C - 1": C - 1, "C": C, "C + 1": C + 1, "2C + 1": 2 * C + 1}
+    r = np.random.default_rng(C)
+    lens = []
+    while sum(lens) < 40 * C + 100:
+        lens += [length[extra], int(r.integers(1, 4))]
+    sv, ss, sl, skey = _segments_state(dev, s, lens, seed=len(lens))
+    base = 3
+    n = sv.shape[1]
+    parent = torch.arange(base, base + n, dtype=torch.int32, device=dev)
+    k = _pair_same(sv, ss, sl + base, skey, 2, 0.5, 4, None, parent, base)
+    assert int((k[2] >= 0).sum()) > int((ss == 0).sum())   # merges
+
+
+def test_pairing_rounds_on_long_and_short_segments_mixed(dev):
+    """Short segments (1 to 40 positions), segments longer than C (700 to
+    20,000) and one dead run of BIG_KEY in between, at S = 20: both
+    launches merge."""
+    r = np.random.default_rng(5)
+    lens = []
+    while sum(lens) < 1 << 20:
+        lens += list(r.integers(1, 41, 50)) + [int(r.integers(700, 20001))]
+    sv, ss, sl, skey = _segments_state(dev, S, lens, noise=0.3)
+    mid = slice(300000, 310000)
+    skey[mid] = lsh.BIG_KEY
+    ss[mid] = 0
+    k = _pair_same(sv, ss, sl, skey, 2, 0.5, 4)
+    died = (k[2] >= 0).cpu().numpy()
+    seg = np.repeat(np.arange(len(lens)), lens)
+    long_seg = np.asarray(lens)[seg] > kernels.pairing_plan(S, 1)["C"]
+    assert died[long_seg].any() and died[~long_seg].any()
 
 
 def test_pairing_rounds_refuses_bad_input(dev):

@@ -465,42 +465,90 @@ def test_directory_search_gives_the_plain_scores(kind, k):
 
 @pytest.mark.parametrize("M", [0, 1, 2047, 2048, 2049, 4095, 4097, 70001,
                                (1 << 20) + 7, 1 << 24,
-                               2**31 - 1 - 2048])
+                               kernels.PAIR_M_MAX])
 def test_pairing_plan_covers_every_position_once(M):
-    plan = kernels.pairing_plan(M)
-    tile = plan["tile"]
-    assert tile == plan["threads"] * kernels.PAIR_ITEMS
+    plan = kernels.pairing_plan(20, M)
+    C = plan["C"]
+    assert C % 32 == 0 and 32 <= C <= kernels.PAIR_CAP_MAX
     assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
-    # tile b holds [b tile, (b + 1) tile): disjoint, and together [0, M)
-    assert plan["blocks"] * tile >= M > (plan["blocks"] - 1) * tile
-    # int32 positions up to the end of the last tile
-    assert plan["blocks"] * tile <= 2**31 - 1
-    # sizes, keys with the one before the tile, the left partners; within
-    # the 48 KB a block takes without opting in
-    assert plan["smem"] == 4 * (3 * tile + 1) <= 48 * 1024
-    # the carry scan's one block of 1024 threads takes every tile's
-    # aggregate in a few sequential steps
-    assert -(-plan["blocks"] // 1024) <= 1024
+    # window b holds [b C, (b + 1) C): disjoint, and together [0, M)
+    assert plan["blocks"] * C >= M > (plan["blocks"] - 1) * C
+    # int32 positions up to the keys a window reads, 2C past its start
+    assert plan["blocks"] * C + 2 * C <= 2**31 - 1
+    # a range of up to 2C - 1 positions, 16-byte aligned, in 2C + 4 places
+    # of values, size, key, half a packed pair and flags; two blocks a SM
+    assert plan["smem"] == (2 * C + 4) * (4 * 20 + 11)
+    assert 2 * (plan["smem"] + kernels.PAIR_STATIC + 1024) <= kernels.SMEM_SM
+    # packed pairs hold a local index in 16 bits
+    assert 2 * C + 4 <= 1 << 16
+    tile = plan["long_tile"]
+    assert tile == plan["long_threads"] * kernels.PAIR_LONG_ITEMS
+    # the count, windows' first starts, four entries a listed segment (at
+    # most one a window) and a tile base, the cooperative blocks' and every
+    # tile's aggregates (a segment's tiles reach past it at most once)
+    assert plan["scratch"] == (2 + 5 * plan["blocks"]
+                               + 3 * kernels.PAIR_LONG_GRID_MAX
+                               + 3 * (-(-M // tile) + plan["blocks"]))
+    assert plan["launches"] == 2
 
 
 def test_pairing_plan_refuses_positions_past_int32():
     with pytest.raises(ValueError):
-        kernels.pairing_plan(2**31 - 2048)
+        kernels.pairing_plan(20, kernels.PAIR_M_MAX + 1)
     with pytest.raises(ValueError):
-        kernels.pairing_plan(-1)
+        kernels.pairing_plan(20, -1)
+    with pytest.raises(ValueError):
+        kernels.pairing_plan(-1, 10)
 
 
 def test_pairing_plan_fills_the_card():
     # 132 SMs: at 2^20 and above, several blocks per SM
     for M in (1 << 20, 1 << 22, 1 << 24):
-        assert kernels.pairing_plan(M)["blocks"] >= 3 * 132
+        assert kernels.pairing_plan(20, M)["blocks"] >= 3 * 132
+
+
+@pytest.mark.parametrize("S,C,per_sm", [(1, 2048, 2), (20, 608, 2),
+                                        (600, 32, 1)])
+def test_pairing_plan_capacity(S, C, per_sm):
+    """C, the most positions (a multiple of 32) whose window's range of up
+    to 2C - 1 fits the blocks a SM: two at S = 1 and 20 (capped at 2048 at
+    S = 1), one at S = 600."""
+    plan = kernels.pairing_plan(S, 1 << 20)
+    assert plan["C"] == C
+    assert plan["smem"] == (2 * C + 4) * (4 * S + 11)
+    room = (kernels.SMEM_SM // per_sm - 1024 - kernels.PAIR_STATIC)
+    assert plan["smem"] <= room
+    if C < kernels.PAIR_CAP_MAX:   # 32 more positions would not fit
+        assert (2 * (C + 32) + 4) * (4 * S + 11) > room
+    assert plan["smem"] <= kernels.SMEM_LIMIT - kernels.PAIR_STATIC
+
+
+@pytest.mark.parametrize("S", [849, 900, 4096])
+def test_pairing_plan_too_wide_sends_every_segment_to_the_second_launch(S):
+    """Where not even 32 positions fit one block, C = 0: one block lists
+    [0, M) and the cooperative launch takes every segment."""
+    plan = kernels.pairing_plan(S, 70001)
+    assert (2 * 32 + 4) * (4 * S + 11) > kernels.SMEM_LIMIT - kernels.PAIR_STATIC
+    assert plan["C"] == 0 and plan["blocks"] == 1 and plan["smem"] == 0
+    assert plan["launches"] == 2
+    assert kernels.pairing_capacity(848) == 32
 
 
 def test_pairing_plan_follows_the_source():
     src = (build.CSRC / "pairing.cu").read_text()
-    assert f"#define KL_PAIR_THREADS {kernels.PAIR_THREADS}" in src
-    assert f"#define KL_PAIR_ITEMS {kernels.PAIR_ITEMS}" in src
-    assert "return 4 * (3 * tile + 1);" in src
+    for name, value in (("KL_PAIR_THREADS", kernels.PAIR_THREADS),
+                        ("KL_PAIR_CAP_MAX", kernels.PAIR_CAP_MAX),
+                        ("KL_LONG_THREADS", kernels.PAIR_LONG_THREADS),
+                        ("KL_LONG_ITEMS", kernels.PAIR_LONG_ITEMS),
+                        ("KL_LONG_GRID_MAX", kernels.PAIR_LONG_GRID_MAX)):
+        assert f"#define {name} {value}" in src, name
+    assert "#define KL_PAIR_POS_BYTES(S) (4 * (S) + 11)" in src
+    assert "#define KL_PAIR_M_MAX (0x7FFFFFFF - 8192)" in src
+    assert kernels.PAIR_M_MAX == 0x7FFFFFFF - 8192
+    assert "#define KL_PAIR_SMEM_MAX (232448 - 1024)" in src
+    assert kernels.SMEM_LIMIT - kernels.PAIR_STATIC == 232448 - 1024
+    assert ("scratch_ints != 2 + 5 * nW + 3 * KL_LONG_GRID_MAX + 3 * tiles"
+            in src)
 
 
 def test_pairing_rounds_refuses_bad_arguments():

@@ -321,97 +321,247 @@ def test_cluster_sharded_ignores_engine_keywords():
 
 # --- K10's steps in numpy ---------------------------------------------------------
 
+NONE = (0, 0, -1)
+
+
 def _cat(a, b):
     """kl_seg_cat: run a, then run b."""
     return (a[0] | b[0], b[1] if b[0] else a[1] + b[1],
             b[2] if b[2] >= 0 else a[2])
 
 
-def k10_numpy(vals, sizes, slots, key, shift, thr, rounds, threads, items,
-              mutation=None, seed=0):
-    """pairing.cu in numpy: per round (a) each tile's aggregate from its
-    threads' item runs, (b) the tiles' exclusive scan, (c) each block, in
-    a shuffled order (blocks run in none), stages its sizes, scans its
-    threads' runs after the carry-in, marks the right-role elements and
-    applies their pairs with float32 operations rounded one at a time."""
+def _cat_no_starts(a, b):
+    """A faulty carry: counts summed across segment starts."""
+    return (a[0] | b[0], a[1] + b[1], b[2] if b[2] >= 0 else a[2])
+
+
+def _exclusive(runs):
+    """Each run's exclusive prefix (a block scan), and the total."""
+    pre, c = [], NONE
+    for a in runs:
+        pre.append(c)
+        c = _cat(c, a)
+    return pre, c
+
+
+def _thread_runs(start, alive, lo, hi, threads, items):
+    """kl_seg_block_scan's input: each thread's run over ``items``
+    consecutive positions of [lo, hi) (start and alive by position), as
+    (start seen, alive after the last start, last alive position)."""
+    out = []
+    for th in range(threads):
+        a = NONE
+        for p in range(lo + th * items, min(lo + (th + 1) * items, hi)):
+            if start(p):
+                a = (1, 0, a[2])
+            if alive(p):
+                a = (a[0], a[1] + 1, p)
+        out.append(a)
+    return out
+
+
+def _merge(v, sz, mi, slots, parent, base, p, q, thr, sr=None):
+    """The pair (left q, right p) in float32 operations rounded one at a
+    time; True where it merged."""
+    f = np.float32
+    dot = nr = nl = f(0)
+    for s in range(v.shape[0]):
+        vr, vl = v[s, p], v[s, q]
+        dot = f(dot + f(vr * vl))
+        nr = f(nr + f(vr * vr))
+        nl = f(nl + f(vl * vl))
+    nn = f(np.sqrt(f(nr * nl)))
+    if not f(dot / (nn if nn > 0 else f(1))) >= f(thr):
+        return False
+    sr = sz[p] if sr is None else sr
+    sl = sz[q]
+    for s in range(v.shape[0]):
+        v[s, q] = f(f(f(v[s, q] * f(sl)) + f(v[s, p] * f(sr))) / f(sl + sr))
+    sz[q] = sl + sr
+    sz[p] = 0
+    mi[p] = slots[q]
+    if parent is not None:
+        parent[slots[p] - base] = slots[q]
+    return True
+
+
+def k10_numpy(vals, sizes, slots, key, shift, thr, rounds, C, threads=8,
+              long_threads=4, long_items=3, grid=3, mutation=None, seed=0,
+              parent=None, base=0, record=None):
+    """pairing.cu in numpy. Launch (1): window blocks of C positions, in a
+    shuffled order (blocks run in none), each finding its segments from
+    the keys, listing a last segment longer than C, and running every
+    round of its range on a copy (its shared memory) with ``threads``
+    threads' runs, block scans and the packed list of pairs (applied in a
+    shuffled order), stopping after two rounds without a merge; then the
+    changed sizes and columns are written back. Launch (2): the listed
+    segments (at C = 0 the whole array), their ends from the windows'
+    first starts, tiles of long_threads x long_items positions; a segment
+    of one tile runs every round in one block, the others' tiles in
+    contiguous chunks of ``grid`` blocks: per round (a) the tiles' and
+    chunks' aggregates, (b) blocks in a shuffled order, each with its
+    carry from the chunks before it, ranking and applying its tiles' pairs
+    in place. ``record`` (a dict) gets the ranges of each launch.
+    Mutations: owner_off_by_one (a window one position too long),
+    dropped_long (the first listed segment lost), parity_reversed, and in
+    launch (2) no_carry and carry_ignores_starts."""
     v, sz = vals.copy(), sizes.copy()
     mi = np.full(len(sz), -1, np.int32)
-    M, tile = len(sz), threads * items
-    nt = -(-M // tile)
-    order = np.random.default_rng(seed).permutation(nt)
-    none = (0, 0, -1)
+    M = len(sz)
+    rng = np.random.default_rng(seed)
+    lift = 1 if mutation == "parity_reversed" else 0
 
-    def runs(b, s_size):
-        """Each thread's run over its items: (start, alive, position)."""
-        out = []
-        for th in range(threads):
-            a = none
-            for j in range(items):
-                p = b * tile + th * items + j
-                if p >= M:
-                    break
-                if p == 0 or (key[p] >> shift) != (key[p - 1] >> shift):
-                    a = (1, 0, a[2])
-                if s_size[p - b * tile] > 0 and key[p] != BIG:
-                    a = (a[0], a[1] + 1, p)
-            out.append(a)
-        return out
+    def start(p):
+        return p == 0 or (key[p] >> shift) != (key[p - 1] >> shift)
 
-    def stage(b):
-        return sz[b * tile:(b + 1) * tile].copy()
+    nw = -(-M // C) if C else 1
+    fs = np.full(nw, -1, np.int64)
+    listed, short = [], []
+    if C == 0:
+        listed.append([0, M])
+    for b in rng.permutation(nw) if C else []:                # (1)
+        w0 = b * C
+        w1 = min(w0 + C + (mutation == "owner_off_by_one"), M)
+        starts = [p for p in range(w0, w1) if start(p)]
+        if not starts:
+            continue
+        first, last = starts[0], starts[-1]
+        fs[b] = first
+        ends = [p for p in range(last + 1, min(last + C, M - 1) + 1)
+                if start(p)]
+        if ends:
+            r1 = ends[0]
+        elif last + C >= M:
+            r1 = M
+        else:
+            if mutation == "dropped_long" and not listed:
+                mutation = "dropped"
+            else:
+                listed.append([last, -1])
+            r1 = last
+        if r1 <= first:
+            continue
+        short.append((first, r1))
+        r0, n = first, r1 - first
+        sv, ssz = v[:, r0:r1].copy(), sz[r0:r1].copy()
+        dirty = np.zeros(n, np.int64)
+        loc_slots = slots[r0:r1]
 
-    for r in range(rounds):
-        ph = r & 1
-        aggs = []
-        for b in range(nt):                                     # (a)
-            tot = none
-            for a in runs(b, stage(b)):
-                tot = _cat(tot, a)
-            aggs.append(tot)
-        carry, c = [], none                                     # (b)
-        for a in aggs:
-            carry.append(c)
-            c = (_cat(c, a) if mutation != "carry_ignores_starts"
-                 else (c[0] | a[0], c[1] + a[1], _cat(c, a)[2]))
-        if mutation == "no_carry":
-            carry = [none] * nt
-        for b in order:                                         # (c)
-            s_size = stage(b)
-            pre = carry[b]
+        def alive(i):
+            return ssz[i] > 0 and key[r0 + i] != BIG
+
+        k = -(-n // threads)
+        quiet = 0
+        for r in range(rounds):
+            if quiet >= 2:
+                break
+            ph = (r + lift) & 1
+            pre, _ = _exclusive(_thread_runs(lambda i: start(r0 + i), alive,
+                                             0, n, threads, k))
             pairs = []
-            for th, a in enumerate(runs(b, s_size)):
-                cnt, last = pre[1], pre[2]
-                for j in range(items):
-                    i = th * items + j
-                    p = b * tile + i
-                    if p >= M:
-                        break
-                    if p == 0 or (key[p] >> shift) != (key[p - 1] >> shift):
+            for th in range(threads):
+                cnt, prev = pre[th][1], pre[th][2]
+                for i in range(th * k, min((th + 1) * k, n)):
+                    if start(r0 + i):
                         cnt = 0
-                    if s_size[i] > 0 and key[p] != BIG:
+                    if alive(i):
                         if cnt >= ph + 1 and (cnt - ph) & 1:
-                            pairs.append((p, last))
+                            pairs.append((i, prev))
                         cnt += 1
-                        last = p
-                pre = _cat(pre, a)
-            for p, q in pairs:
-                f = np.float32
-                dot = nr = nl = f(0)
-                for s in range(v.shape[0]):
-                    vr, vl = v[s, p], v[s, q]
-                    dot = f(dot + f(vr * vl))
-                    nr = f(nr + f(vr * vr))
-                    nl = f(nl + f(vl * vl))
-                nn = f(np.sqrt(f(nr * nl)))
-                if not f(dot / (nn if nn > 0 else f(1))) >= f(thr):
-                    continue
-                sr, sl = s_size[p - b * tile], sz[q]
-                for s in range(v.shape[0]):
-                    v[s, q] = f(f(f(v[s, q] * f(sl)) + f(v[s, p] * f(sr)))
-                                / f(sl + sr))
-                sz[q] = sl + sr
-                sz[p] = 0
-                mi[p] = slots[q]
+                        prev = i
+            merged = False
+            loc_mi = np.full(n, -1, np.int32)
+            for i in rng.permutation(len(pairs)):   # threads in any order
+                p, q = pairs[i]
+                if _merge(sv, ssz, loc_mi, loc_slots, None, 0, p, q, thr):
+                    merged = True
+                    dirty[q] |= 12
+                    dirty[p] |= 4
+                    mi[r0 + p] = loc_mi[p]
+                    if parent is not None:
+                        parent[loc_slots[p] - base] = loc_slots[q]
+            quiet = 0 if merged else quiet + 1
+        for i in range(n):
+            if dirty[i] & 4:
+                sz[r0 + i] = ssz[i]
+            if dirty[i] & 8:
+                v[:, r0 + i] = sv[:, i]
+    if record is not None:
+        record.update(short=short, listed=listed)
+    if not listed:                                            # (2)
+        return v, sz, mi
+    for seg in listed:
+        if seg[1] < 0:
+            later = np.nonzero(fs[seg[0] // C + 1:] >= 0)[0]
+            seg[1] = int(fs[seg[0] // C + 1 + later[0]]) if len(later) else M
+    tile = long_threads * long_items
+    tiles = [-(-(e - a) // tile) for a, e in listed]
+
+    def alive(p):
+        return sz[p] > 0 and key[p] != BIG
+
+    def apply(p0, p1, carry, ph):
+        """kl_long_apply: tile [p0, p1)'s ranks after the carry, then its
+        right-role elements' pairs in place."""
+        staged = sz[p0:p1].copy()
+        pre, _ = _exclusive(_thread_runs(start, alive, p0, p1,
+                                         long_threads, long_items))
+        rights = []
+        for th in range(long_threads):
+            c = _cat(carry, pre[th])
+            cnt, last = c[1], c[2]
+            for p in range(p0 + th * long_items,
+                           min(p0 + (th + 1) * long_items, p1)):
+                if start(p):
+                    cnt = 0
+                if staged[p - p0] > 0 and key[p] != BIG:
+                    if cnt >= ph + 1 and (cnt - ph) & 1:
+                        rights.append((p, last))
+                    cnt += 1
+                    last = p
+        for p, q in rights:
+            _merge(v, sz, mi, slots, parent, base, p, q, thr,
+                   staged[p - p0])
+
+    for j in rng.permutation(len(listed)):   # one tile: one block
+        if tiles[j] == 1:
+            for r in range(rounds):
+                apply(*listed[j], NONE, (r + lift) & 1)
+    lb = np.concatenate([[0], np.cumsum([x if x > 1 else 0
+                                         for x in tiles])])
+    T = int(lb[-1])
+    ch = -(-T // grid)
+
+    def span(t):
+        j = int(np.searchsorted(lb, t, side="right")) - 1
+        p0 = listed[j][0] + (t - int(lb[j])) * tile
+        return p0, min(p0 + tile, listed[j][1])
+
+    cat = _cat_no_starts if mutation == "carry_ignores_starts" else _cat
+    agg = [None] * T
+    for r in range(rounds):
+        ph = (r + lift) & 1
+        chunks = []
+        for b in range(grid):                                 # (a)
+            mine = NONE
+            for t in range(min(b * ch, T), min(b * ch + ch, T)):
+                if r == 0 or agg[t][2] >= 0:
+                    p0, p1 = span(t)
+                    agg[t] = _exclusive(_thread_runs(start, alive, p0, p1,
+                                                     long_threads,
+                                                     long_items))[1]
+                mine = _cat(mine, agg[t])
+            chunks.append(mine)
+        for b in rng.permutation(grid):                       # (b)
+            carry = NONE
+            for c in chunks[:b]:
+                carry = cat(carry, c)
+            for t in range(min(b * ch, T), min(b * ch + ch, T)):
+                if mutation == "no_carry":
+                    carry = NONE
+                if agg[t][2] >= 0:
+                    apply(*span(t), carry, ph)
+                carry = cat(carry, agg[t])
     return v, sz, mi
 
 
@@ -434,18 +584,111 @@ def k10_case(seed, m=700, s=5):
     return np.ascontiguousarray(vals.T), sizes, slots, key
 
 
+K10_C = 6     # the transcription's capacity: segments of k10_case cross it
+K10_MUTATIONS = ["no_carry", "carry_ignores_starts", "owner_off_by_one",
+                 "dropped_long", "parity_reversed"]
+
+
+def k10_same(got, want):
+    return all(np.array_equal(g, w.numpy()) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("rounds", [1, 4])
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("mutation",
-                         [None, "no_carry", "carry_ignores_starts"])
+@pytest.mark.parametrize("mutation", [None] + K10_MUTATIONS)
 def test_k10_steps_give_the_plain_rounds(seed, rounds, mutation):
+    """Both launches at C = 6 (short segments in shared memory, the longer
+    ones listed for the cooperative launch) and the cooperative launch
+    alone (C = 0), bit for bit against the plain rounds; each mutation
+    must be caught."""
     vals, sizes, slots, key = k10_case(seed)
     stats = []
     want = kernels.pairing_rounds_plain(t(vals), t(sizes), t(slots), t(key),
                                         2, 0.5, rounds, stats=stats)
     assert all(0 < merged < formed for formed, merged in stats)
-    got = k10_numpy(vals, sizes, slots, key, 2, 0.5, rounds, threads=4,
-                    items=3, mutation=mutation, seed=seed)
-    same = all(np.array_equal(g, w.numpy()) for g, w in zip(got, want))
-    # the transcription agrees bit for bit; each mutation must be caught
+    same = all(
+        k10_same(k10_numpy(vals, sizes, slots, key, 2, 0.5, rounds, C,
+                           mutation=mutation, seed=seed), want)
+        for C in (K10_C, 0))
     assert same == (mutation is None)
+
+
+def straddle_case(length, offset, C=K10_C, s=4, m=None, seed=0):
+    """A sorted state of segments of ``length`` (alternating with short
+    ones of 1 to 3) whose first starts ``offset`` positions after a window
+    edge of C, one profile a segment with noise 0.05 (most pairs merge at
+    0.5), a dead column in 9."""
+    r = np.random.default_rng(seed)
+    lens = [offset] if offset else []
+    while sum(lens) < (m or 8 * C + 40):
+        lens += [length, int(r.integers(1, 4))]
+    seg = np.repeat(np.arange(len(lens)), lens)[:m or sum(lens)]
+    n = len(seg)
+    key = ((seg << 2) | r.integers(0, 4, n)).astype(np.int32)
+    prof = r.standard_normal((len(lens), s)).astype(np.float32)
+    vals = (prof[seg] + 0.05 * r.standard_normal((n, s))).astype(np.float32)
+    sizes = r.integers(1, 6, n).astype(np.int32)
+    sizes[r.random(n) < 1 / 9] = 0
+    slots = r.permutation(n).astype(np.int32)
+    return np.ascontiguousarray(vals.T), sizes, slots, key
+
+
+@pytest.mark.parametrize("offset", [0, 1, K10_C - 1])
+@pytest.mark.parametrize("length", [K10_C - 1, K10_C, K10_C + 1,
+                                    2 * K10_C + 1])
+def test_k10_steps_on_segments_that_straddle_windows(length, offset):
+    """Segments of C - 1, C, C + 1 and 2C + 1 positions across window
+    edges, with a parent forest at a base: bit for bit, and a segment goes
+    to the cooperative launch exactly when it is longer than C."""
+    vals, sizes, slots, key = straddle_case(length, offset)
+    base = 7
+    parent = np.arange(base, base + len(sizes), dtype=np.int32)
+    want_parent = torch.from_numpy(parent.copy())
+    want = kernels.pairing_rounds_plain(t(vals), t(sizes), t(slots + base),
+                                        t(key), 2, 0.5, 4,
+                                        parent=want_parent, base=base)
+    rec = {}
+    got_parent = parent.copy()
+    got = k10_numpy(vals, sizes, slots + base, key, 2, 0.5, 4, K10_C,
+                    parent=got_parent, base=base, record=rec)
+    assert k10_same(got, want)
+    assert np.array_equal(got_parent, want_parent.numpy())
+    listed = {a for a, _ in rec["listed"]}
+    starts = np.flatnonzero(np.diff(key >> 2, prepend=-1))
+    ends = np.append(starts[1:], len(key))
+    assert listed == {a for a, e in zip(starts, ends) if e - a > K10_C}
+    assert (length > K10_C) == bool(listed)
+
+
+@pytest.mark.parametrize("C", [K10_C, 0])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k10_ranges_cover_every_position_once(seed, C):
+    """Launch (1)'s ranges and launch (2)'s segments tile [0, M) without
+    overlap, with blocks in any order."""
+    vals, sizes, slots, key = k10_case(seed)
+    rec = {}
+    k10_numpy(vals, sizes, slots, key, 2, 0.5, 1, C, seed=seed, record=rec)
+    spans = sorted(rec["short"] + [tuple(x) for x in rec["listed"]])
+    assert spans[0][0] == 0 and spans[-1][1] == len(key)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert (C == 0) == (spans == [(0, len(key))])
+
+
+@pytest.mark.parametrize("rounds", [1, 4, 16])
+def test_k10_steps_on_one_segment_across_the_array(rounds):
+    """One segment over 500 positions of one profile: launch (1) lists it,
+    the cooperative launch's 42 tiles in three chunks carry the ranks."""
+    r = np.random.default_rng(rounds)
+    n = 500
+    vals = (np.ones((3, n)) + 1e-3 * r.standard_normal((3, n))).astype(
+        np.float32)
+    sizes = np.ones(n, np.int32)
+    slots = np.arange(n, dtype=np.int32)
+    key = np.full(n, 3, np.int32)
+    want = kernels.pairing_rounds_plain(t(vals), t(sizes), t(slots), t(key),
+                                        0, 0.9, rounds)
+    rec = {}
+    got = k10_numpy(vals, sizes, slots, key, 0, 0.9, rounds, K10_C,
+                    record=rec)
+    assert k10_same(got, want)
+    assert rec["listed"] == [[0, n]] and not rec["short"]

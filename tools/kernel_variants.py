@@ -6,6 +6,7 @@ card, in one process.
     python3 tools/kernel_variants.py fold
     python3 tools/kernel_variants.py wrs [PARENT_ROOT]
     python3 tools/kernel_variants.py sort [PARENT_ROOT]
+    python3 tools/kernel_variants.py pairing [PARENT_ROOT]
 
 Each variant is a list of substitutions in ``kmerlsh_tpu_torch/csrc``; the
 sources of every variant are compiled with the flags of
@@ -132,6 +133,40 @@ and, given PARENT_ROOT, the parent's sort_keys.cu through its own entry
 point (the earlier design: three launches a pass).
 
 A variant that does not compile is reported and left out.
+
+``pairing`` times the pairing rounds (pairing_rounds, K10) on chip_smoke.py
+phase 3's first sorted state at 2^20, 2^22 and 2^24 x 20, 4 rounds at 0.95
+and 0.5 with a parent forest, and on one segment across 2^22 columns (the
+cooperative launch alone), two rounds in turns, each call with the state
+restored outside its CUDA events (chip_smoke.cuda_ms_restored) and its
+outputs checked equal to the plain version's; then the card time by
+kernel at 2^24. Each variant is pairing.cu alone in a library of its own,
+with the plan its defines need (PAIRING_VARIANTS):
+
+  committed          the source as it is: two launches, C from two
+                     512-thread blocks a SM, the cooperative launch on
+                     four blocks a SM;
+  four-a-sm          256 threads and C from four blocks a SM (more
+                     segments to the cooperative launch);
+  eight-a-sm         128 threads and C from eight blocks a SM;
+  one-a-sm           1024 threads and C from one block a SM;
+  unroll             each loop over the samples unrolled by 4;
+  no-prefetch        the short-segment blocks copy their range's columns
+                     only once they know it (not the window's with its
+                     keys);
+  long-2             the cooperative launch on two blocks a SM;
+  no-merge-math      (inexact) a merge leaves the left's values as they
+                     are: the cost of the means;
+  clocks             thread 0 of each short-segment block sums each
+                     phase's cycles (clock64), logged a block;
+  cosines-only       (inexact) every round's cosines, no merge;
+  no-apply           (inexact) every round's ranks and list of pairs, no
+                     cosine;
+  no-rounds          (inexact) no round: the staging alone;
+
+with the blocks a SM each library's kernels get (the occupancy API),
+and, given PARENT_ROOT, the parent's pairing.cu through its own entry point
+(the earlier design: three launches a round).
 """
 
 from __future__ import annotations
@@ -1215,7 +1250,268 @@ def main_sort(parent: str | None) -> None:
     build._lib = None
 
 
+PAIR_MEAN = """      for (int s = 0; s < S; ++s) {
+        float* vq = sv + s * W + q;
+        *vq = __fdiv_rn(__fadd_rn(__fmul_rn(*vq, fl),
+                                  __fmul_rn(sv[s * W + p], fr)),
+                        ft);
+      }"""
+QUIET = "quiet = __syncthreads_or(merged) ? 0 : quiet + 1;"
+# "clocks": thread 0 of each short-segment block adds the cycles of each
+# phase (clock64) into kl_pair_clk: keys and starts, staging, then each
+# round's first scan, its list of pairs, its cosines and merges, and the
+# write-back; [7] counts the blocks that wrote back
+PAIR_CLK = """#define KL_CLK(k)                                                    \\
+  if (t == 0) {                                                      \\
+    const long long c = clock64();                                   \\
+    atomicAdd(kl_pair_clk + (k), (unsigned long long)(c - kc));      \\
+    kc = c;                                                          \\
+  }
+__device__ unsigned long long kl_pair_clk[8];
+"""
+PAIR_CLOCKS = [
+    ("", "namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n" + PAIR_CLK),
+    ("", "  const int nW = gridDim.x, t = threadIdx.x, T = blockDim.x;\n",
+     "  const int nW = gridDim.x, t = threadIdx.x, T = blockDim.x;\n"
+     "  long long kc = clock64();\n"),
+    ("", "atomicMin(&s_end, e);\n  __syncthreads();\n",
+     "atomicMin(&s_end, e);\n  __syncthreads();\n  KL_CLK(0)\n"),
+    ("", "  kl_cp_async_wait_all();\n  __syncthreads();\n  // flags",
+     "  kl_cp_async_wait_all();\n  __syncthreads();\n  KL_CLK(1)\n  // flags"),
+    ("", "    const KlSeg pre = kl_seg_block_scan(run, &total);\n",
+     "    const KlSeg pre = kl_seg_block_scan(run, &total);\n    KL_CLK(2)\n"),
+    ("", "    __syncthreads();\n    int merged = 0;\n",
+     "    __syncthreads();\n    KL_CLK(3)\n    int merged = 0;\n"),
+    ("", "    quiet = __syncthreads_or(merged) ? 0 : quiet + 1;\n",
+     "    quiet = __syncthreads_or(merged) ? 0 : quiet + 1;\n    KL_CLK(4)\n"),
+    ("", "      if (sfl[i] & 8) v[(long long)s * M + a0 + i] = sv[(long long)s * W + i];\n}",
+     "      if (sfl[i] & 8) v[(long long)s * M + a0 + i] = sv[(long long)s * W + i];\n"
+     "  KL_CLK(5)\n  if (t == 0) atomicAdd(kl_pair_clk + 7, 1ull);\n}"),
+    ("", "KL_EXPORT int kl_pairing_rounds(",
+     "KL_EXPORT int kl_pair_clocks(unsigned long long* out) {\n"
+     "  unsigned long long zero[8] = {0};\n"
+     "  cudaMemcpyFromSymbol(out, kl_pair_clk, sizeof(zero));\n"
+     "  return (int)cudaMemcpyToSymbol(kl_pair_clk, zero, sizeof(zero));\n}\n"
+     "KL_EXPORT int kl_pairing_rounds("),
+]
+PAIR_PHASES = ("keys and starts", "staging", "rounds' first scans",
+               "rounds' lists of pairs", "rounds' cosines and merges",
+               "write-back")
+PAIRING_VARIANTS = {
+    "committed": ([], {}),
+    "clocks": (PAIR_CLOCKS, {}),
+    "four-a-sm": ([("", "#define KL_PAIR_THREADS 512",
+                    "#define KL_PAIR_THREADS 256"),
+                   ("", "#define KL_PAIR_PER_SM 2", "#define KL_PAIR_PER_SM 4")],
+                  {"PAIR_PER_SM": 4}),
+    "eight-a-sm": ([("", "#define KL_PAIR_THREADS 512",
+                     "#define KL_PAIR_THREADS 128"),
+                    ("", "#define KL_PAIR_PER_SM 2",
+                     "#define KL_PAIR_PER_SM 8")], {"PAIR_PER_SM": 8}),
+    "one-a-sm": ([("", "#define KL_PAIR_THREADS 512",
+                   "#define KL_PAIR_THREADS 1024"),
+                  ("", "#define KL_PAIR_PER_SM 2", "#define KL_PAIR_PER_SM 1")],
+                 {"PAIR_PER_SM": 1}),
+    "unroll": ([("", "for (int s = 0; s < S; ++s) {",
+                 "_Pragma(\"unroll 4\") for (int s = 0; s < S; ++s) {")],
+               {}),
+    "no-prefetch": ([("", "  kl_pair_copy(sv, W, v, S, M, w0, w1, w0, wide);\n",
+                      ""),
+                     ("", """  const int a0 = w0;
+  if (r1 > w1) kl_pair_copy(sv, W, v, S, M, w1, r1, a0, wide);""",
+                      """  const int a0 = r0 & ~3;
+  kl_pair_copy(sv, W, v, S, M, r0, r1, a0, wide);""")], {}),
+    "long-2": ([("", "#define KL_LONG_PER_SM 4", "#define KL_LONG_PER_SM 2")],
+               {}),
+    "no-merge-math": ([("", PAIR_MEAN, "")], {}),
+    "cosines-only": ([("", "if (!(sim >= thr)) continue;",
+                       "if (sim != -7.f) continue;"),
+                      ("", QUIET, "quiet = 0 * __syncthreads_or(merged);")],
+                     {}),
+    "no-apply": ([("", "for (int u = t; u < npairs; u += T) {",
+                   "for (int u = t; u < 0; u += T) {"),
+                  ("", QUIET, "quiet = 0 * __syncthreads_or(merged);")], {}),
+    "no-rounds": ([("", "for (int r = 0; r < rounds && quiet < 2; ++r) {",
+                    "for (int r = 0; r < 0; ++r) {")], {}),
+}
+# the parent's entry point (the earlier design: three launches a round)
+PARENT_PAIRING_SIGNATURE = (build._P, build._I, build._L, build._P, build._P,
+                            build._P, build._P, build._P, build._L, build._I,
+                            build._F, build._I, build._I, build._I, build._I,
+                            build._P, build._P)
+
+
+PAIR_OCCUPANCY = """
+KL_EXPORT int kl_pair_occupancy(int smem, int long_kernel) {
+  int n = -1, grid;
+  if (kl_pair_setup(&grid)) return -1;
+  if (long_kernel)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kl_pair_long,
+                                                  KL_LONG_THREADS, smem);
+  else
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kl_pair_short,
+                                                  KL_PAIR_THREADS, smem);
+  return n;
+}
+"""
+
+
+def committed_pairing(lib: ctypes.CDLL, attrs: dict):
+    """kernels.pairing_rounds on library lib, with the kernels attributes
+    attrs set for the call."""
+    fn = lib.kl_pairing_rounds
+    fn.argtypes = build.SIGNATURES["kl_pairing_rounds"]
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        saved = {a: getattr(kernels, a) for a in attrs}
+        build._lib = lib
+        for a, value in attrs.items():
+            setattr(kernels, a, value)
+        try:
+            return kernels.pairing_rounds(*args)
+        finally:
+            for a, value in saved.items():
+                setattr(kernels, a, value)
+
+    return call
+
+
+def parent_pairing(lib: ctypes.CDLL):
+    """The parent's K10 (the earlier design: tile aggregates, one block's
+    carry scan and the apply, three launches a round, on tiles of 2048
+    positions) through its entry point in lib, with its plan."""
+    fn = lib.kl_pairing_rounds
+    fn.argtypes, fn.restype = PARENT_PAIRING_SIGNATURE, ctypes.c_int
+
+    def call(sv, ss, sl, skey, shift, thr, rounds, smi=None, parent=None,
+             base=0):
+        S, M = sv.shape
+        mi = smi if smi is not None else torch.full(
+            (M,), -1, dtype=torch.int32, device=sv.device)
+        tile = 2048
+        blocks = -(-M // tile)
+        scratch = torch.empty(6 * blocks, dtype=torch.int32, device=sv.device)
+        err = fn(sv.data_ptr(), S, M, ss.data_ptr(), sl.data_ptr(),
+                 skey.data_ptr(), mi.data_ptr(),
+                 None if parent is None else parent.data_ptr(), base, shift,
+                 thr, rounds, tile, blocks, 4 * (3 * tile + 1),
+                 scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent kl_pairing_rounds: CUDA error {err}")
+        return sv, ss, mi
+
+    return call
+
+
+def pairing_inputs() -> list:
+    """(what, sorted state, shift, thresholds): phase 3's first sorted
+    state at 2^20, 2^22 and 2^24 x 20 (chip_smoke.first_sorted_state), and
+    one segment across 2^22 columns of one profile (noise 1e-3)."""
+    cases = []
+    for M in (cs.SMALL, cs.OOC_BATCH, cs.FULL):
+        *state, h = cs.first_sorted_state(M)
+        cases.append((f"phase 3's state at {M}", state, kernels.free_bits(h),
+                      (0.95, cs.PAIR_LOW)))
+    n = cs.OOC_BATCH
+    g = torch.Generator(device=cs.DEV).manual_seed(3)
+    sv = 1 + 1e-3 * torch.randn((cs.S, n), device=cs.DEV, generator=g)
+    cases.append((f"one segment across {n}",
+                  [sv, torch.ones(n, dtype=torch.int32, device=cs.DEV),
+                   torch.arange(n, dtype=torch.int32, device=cs.DEV),
+                   torch.full((n,), 3, dtype=torch.int32, device=cs.DEV)], 0,
+                  (0.9,)))
+    return cases
+
+
+def main_pairing(parent: str | None) -> None:
+    from pathlib import Path
+
+    libs = build_alone(build.CSRC, "pairing.cu",
+                       {n: v[0] + [("", "KL_EXPORT int kl_pairing_rounds(",
+                                    PAIR_OCCUPANCY
+                                    + "KL_EXPORT int kl_pairing_rounds(")]
+                        for n, v in PAIRING_VARIANTS.items()},
+                       "pairing")
+    calls = {name: committed_pairing(lib, PAIRING_VARIANTS[name][1])
+             for name, lib in libs.items()}
+    for name, lib in libs.items():   # blocks a SM at S = 20
+        saved = kernels.PAIR_PER_SM
+        kernels.PAIR_PER_SM = PAIRING_VARIANTS[name][1].get(
+            "PAIR_PER_SM", saved)
+        smem = kernels.pairing_plan(cs.S, cs.FULL)["smem"]
+        kernels.PAIR_PER_SM = saved
+        cs.log(f"pairing variant {name}: short-segment blocks a SM at "
+               f"{smem} bytes {lib.kl_pair_occupancy(smem, 0)}, "
+               f"cooperative blocks a SM {lib.kl_pair_occupancy(24580, 1)}")
+    if parent:
+        csrc = Path(parent).resolve() / "kmerlsh_tpu_torch" / "csrc"
+        for name, lib in build_alone(csrc, "pairing.cu", {"parent": []},
+                                     "pairing_parent").items():
+            calls[name] = parent_pairing(lib)
+    build._lib = None   # the inputs on the kernels as committed
+    names = list(calls)
+    for what, (sv, ss, sl, skey), shift, thrs in pairing_inputs():
+        M = sv.shape[1]
+        ident = torch.arange(M, dtype=torch.int32, device=cs.DEV)
+        state = [sv.clone(), ss.clone(), ident.clone()]
+
+        def restore():
+            state[0].copy_(sv)
+            state[1].copy_(ss)
+            state[2].copy_(ident)
+
+        for thr in thrs:
+            def run(fn):
+                return list(fn(state[0], state[1], sl, skey, shift, thr,
+                               cs.PAIR_ROUNDS, None, state[2])) + [state[2]]
+
+            restore()
+            want = [x.clone() for x in run(kernels.pairing_rounds_plain)]
+            for rnd in range(2):
+                for name in (names if rnd == 0 else names[::-1]):
+                    restore()
+                    try:
+                        same = all(torch.equal(a, b) for a, b in
+                                   zip(run(calls[name]), want))
+                        ms = cs.cuda_ms_restored(lambda: run(calls[name]),
+                                                 restore)
+                        cs.log(f"pairing {what}, {thr}, variant {name}, "
+                               f"round {rnd}: {ms:.4f} ms (exact: {same})")
+                    except (RuntimeError, ValueError) as e:
+                        cs.log(f"pairing {what}, variant {name}: {e}")
+            if "clocks" in calls and not what.startswith("one seg"):
+                out = (ctypes.c_ulonglong * 8)()
+                libs["clocks"].kl_pair_clocks(out)
+                restore()
+                run(calls["clocks"])
+                torch.cuda.synchronize()
+                libs["clocks"].kl_pair_clocks(out)
+                blocks = kernels.pairing_plan(sv.shape[0], M)["blocks"]
+                cs.log(f"pairing {what}, {thr}, clocks a block of "
+                       f"{blocks}: " + ", ".join(
+                           f"{ph} {out[k] / blocks:.0f}"
+                           for k, ph in enumerate(PAIR_PHASES))
+                       + f"; {out[7]} blocks wrote back")
+            if M == cs.FULL and thr == 0.95 or what.startswith("one seg"):
+                for name in names:
+                    restore()
+                    by, launched = cs.traced_launches(
+                        lambda: (restore(), run(calls[name])), 10)
+                    for k, (ms, c) in sorted(by.items()):
+                        if k.startswith("kl_pair"):
+                            cs.log(f"pairing {what}, {thr}, {name}, card "
+                                   f"time by kernel: {k} {ms / 10:.4f} ms "
+                                   f"in {c / 10:g} launches a call")
+        del state
+    build._lib = None
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["pairing"]:
+        main_pairing(sys.argv[2] if len(sys.argv) > 2 else None)
+        return
     if sys.argv[1:2] == ["sort"]:
         main_sort(sys.argv[2] if len(sys.argv) > 2 else None)
         return
