@@ -1,0 +1,12 @@
+"""e_write_ms (ms a job, program spans): building and writing the selected
+FASTQ records of each part in mode E (span kmerlsh.E_extract.write), summed
+over the window and averaged over its jobs."""
+
+NAMES = ("kmerlsh.E_extract.write",)
+
+
+def read(run):
+    if run.trace is None or not run.done:
+        return None
+    ns = [b - a for a, b, name in run.trace.host if name in NAMES]
+    return sum(ns) * 1e-6 / len(run.done) if ns else None

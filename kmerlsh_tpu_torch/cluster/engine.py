@@ -32,7 +32,6 @@ planes from elsewhere (``it → [S, 31]``).
 
 from __future__ import annotations
 
-import time
 from typing import Callable
 
 import numpy as np
@@ -41,12 +40,15 @@ import torch
 from kmerlsh_tpu_torch import kernels
 from kmerlsh_tpu_torch.cluster.groups import Groups
 from kmerlsh_tpu_torch.ops import lsh, rng, xlamath
+from kmerlsh_tpu_torch.utils.timing import span
 
-# wall-clock split of the most recent cluster_counts/cluster session:
-#   device_seconds — iterations and finalize, dispatch to the host's read
-#                    of their result
-#   pull_seconds   — device→host copies of the finalize result (a deferred
-#                    pull's go to its own stats instead)
+# wall-clock split of the most recent cluster_counts/cluster session, each
+# part a timing.span (traced as kmerlsh.<span>):
+#   device_seconds — the transform, iterations and finalize, dispatch to the
+#                    host's read of their result (spans transform, iter,
+#                    finalize)
+#   pull_seconds   — device→host copies of the finalize result (span
+#                    pull.copy; a deferred pull's go to its own stats instead)
 #   pull_bytes     — their size;  programs — (name, seconds) per step;
 #   clusters       — the session's cluster count
 LAST_SESSION: dict = {}
@@ -217,26 +219,34 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
     for it, threshold in enumerate(thr):
         if na == 0:
             break
-        h = _active_h_of(na)
+        with span("iter.h"):
+            h = _active_h_of(na)
         cap = values_t.shape[1]
         kind = "chain" if deep_init and it == 0 else merge
-        t0 = time.perf_counter()
-        values_t, sizes, slots = _one_iteration(
-            values_t, sizes, slots, parent, planes(it), float(threshold), h,
-            kind, rounds)
-        na_next = int((sizes > 0).sum())            # the one read per iteration
-        _record(f"iter[{it}]@{cap}", time.perf_counter() - t0)
+        with span("iter") as sp:
+            with span("iter.planes"):
+                p = planes(it)
+            with span("iter.enqueue"):
+                values_t, sizes, slots = _one_iteration(
+                    values_t, sizes, slots, parent, p, float(threshold), h,
+                    kind, rounds)
+            with span("iter.wait"):                # the one read per iteration
+                na_next = int((sizes > 0).sum())
+        _record(f"iter[{it}]@{cap}", sp.seconds)
         # alive columns now all sit before na: the rest is dead tail
         values_t, sizes, slots = values_t[:, :na], sizes[:na], slots[:na]
         na = na_next
         if verbose:
             print(f"[torch] iter {it + 1}: {na} clusters")
 
-    t0 = time.perf_counter()
-    values_t, sizes, slots = compact_sort(values_t, sizes, slots)
-    out = _finalize_grouped(values_t[:, :na], sizes[:na], slots[:na], parent)
-    sync()
-    _record(f"finalize@{na}", time.perf_counter() - t0)
+    with span("finalize") as sp:
+        with span("finalize.enqueue"):
+            values_t, sizes, slots = compact_sort(values_t, sizes, slots)
+            out = _finalize_grouped(values_t[:, :na], sizes[:na], slots[:na],
+                                    parent)
+        with span("finalize.wait"):
+            sync()
+    _record(f"finalize@{na}", sp.seconds)
     LAST_SESSION["clusters"] = na
     if defer_pull:
         return _deferred(out)
@@ -249,20 +259,20 @@ def _pull(flat, lens, csizes, cents, stats: dict, stream=None):
     sizes and centroids come first, then the members the lens count. By
     ``.cpu()`` on the current stream, or on a CUDA side ``stream`` into
     pinned host memory (:func:`_to_pinned`)."""
-    t0 = time.perf_counter()
-    if stream is None:
-        lens, csizes, cents = lens.cpu(), csizes.cpu(), cents.cpu()
-    else:
-        lens, csizes, cents = _to_pinned(stream, lens, csizes, cents)
-    offs = np.concatenate([[0], np.cumsum(lens.numpy(), dtype=np.int64)])
-    flat = flat[:int(offs[-1])]
-    flat = flat.cpu() if stream is None else _to_pinned(stream, flat)[0]
-    stats["pull_seconds"] += time.perf_counter() - t0
-    stats["pull_bytes"] += sum(t.numel() * t.element_size()
-                               for t in (lens, csizes, cents, flat))
-    return (np.ascontiguousarray(cents.numpy().T),
-            csizes.numpy().astype(np.int64),
-            Groups(flat.numpy().astype(np.int64), offs))
+    with span("pull.copy", stats, "pull_seconds"):
+        if stream is None:
+            lens, csizes, cents = lens.cpu(), csizes.cpu(), cents.cpu()
+        else:
+            lens, csizes, cents = _to_pinned(stream, lens, csizes, cents)
+        offs = np.concatenate([[0], np.cumsum(lens.numpy(), dtype=np.int64)])
+        flat = flat[:int(offs[-1])]
+        flat = flat.cpu() if stream is None else _to_pinned(stream, flat)[0]
+    with span("pull.host"):
+        stats["pull_bytes"] += sum(t.numel() * t.element_size()
+                                   for t in (lens, csizes, cents, flat))
+        return (np.ascontiguousarray(cents.numpy().T),
+                csizes.numpy().astype(np.int64),
+                Groups(flat.numpy().astype(np.int64), offs))
 
 
 def _to_pinned(stream, *tensors: torch.Tensor) -> list[torch.Tensor]:
@@ -377,12 +387,12 @@ def cluster_counts(
     v = torch.as_tensor(np.asarray(v_kmers, np.float32), device=dev)
     sync = _sync_for(dev)
     _reset_session()
-    t0 = time.perf_counter()
-    values_t, sizes = kernels.abundance_transform(counts, v)
-    slots = torch.arange(cap0, dtype=torch.int32, device=dev)
-    parent = torch.arange(cap0, dtype=torch.int32, device=dev)
-    sync()
-    _record(f"transform@{cap0}", time.perf_counter() - t0)
+    with span("transform") as sp:
+        values_t, sizes = kernels.abundance_transform(counts, v)
+        slots = torch.arange(cap0, dtype=torch.int32, device=dev)
+        parent = torch.arange(cap0, dtype=torch.int32, device=dev)
+        sync()
+    _record(f"transform@{cap0}", sp.seconds)
     return _drive_session(values_t, sizes, slots, parent, thr,
                           _planes_fn(seed, S, hyperplanes, dev), verbose,
                           sync, defer_pull, merge, rounds, deep_init)

@@ -35,7 +35,6 @@ data everywhere, and the kernels are deterministic.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
@@ -46,12 +45,14 @@ from kmerlsh_tpu_torch.cluster.groups import Groups
 from kmerlsh_tpu_torch.ops import lsh, rng
 from kmerlsh_tpu_torch.parallel.mesh import Mesh, make_mesh
 from kmerlsh_tpu_torch.parallel.multihost import gather_np
+from kmerlsh_tpu_torch.utils.timing import span
 
 EXCHANGE_CAP = 4096   # survivor summaries exchanged per rank per iteration
 
 # wall-clock split of the most recent sharded session, with the
 # single-device tail's own split folded in:
-#   device_seconds, pull_seconds, pull_bytes, programs — as engine's;
+#   device_seconds, pull_seconds, pull_bytes, programs — as engine's (spans
+#     dist.transform and dist.iters, a head or chunk each; dist.pull);
 #   sharded_iterations — iterations run sharded (the tail starts there);
 #   alive — the global alive count then;
 #   tail — "handoff", "terminal" or None;  gathered — elements the
@@ -134,16 +135,14 @@ def _drive(mesh: Mesh, values_t, sizes, slots, parent, thresholds, seed: int,
 
     def run(tag: str, lo: int, hi: int) -> None:
         nonlocal values_t, sizes, slots, na
-        t0 = time.perf_counter()
-        for it in range(lo, hi):
-            planes = rng.draw_hyperplanes(seed, it, s).to(dev)
-            values_t, sizes, slots, na = _one_dist_iteration(
-                mesh, values_t, sizes, slots, parent, na, planes,
-                float(thr[it]), it, e, c0_loc)
-        sync()
-        dt = time.perf_counter() - t0
-        LAST_SESSION["device_seconds"] += dt
-        LAST_SESSION["programs"].append((tag, round(dt, 4)))
+        with span("dist.iters", LAST_SESSION, "device_seconds") as sp:
+            for it in range(lo, hi):
+                planes = rng.draw_hyperplanes(seed, it, s).to(dev)
+                values_t, sizes, slots, na = _one_dist_iteration(
+                    mesh, values_t, sizes, slots, parent, na, planes,
+                    float(thr[it]), it, e, c0_loc)
+            sync()
+        LAST_SESSION["programs"].append((tag, round(sp.seconds, 4)))
         LAST_SESSION["exchanges"] += hi - lo
 
     head_k = min(total, HEAD_ITERS)
@@ -172,11 +171,10 @@ def _drive(mesh: Mesh, values_t, sizes, slots, parent, thresholds, seed: int,
     LAST_SESSION["alive"] = na
     fin_c = min(c_loc, _local_cap(max(max_alive, 1), 1))
     values_t, sizes, slots = _slice_to(values_t, sizes, slots, fin_c)
-    t0 = time.perf_counter()
-    pulled = (gather_np(values_t.contiguous(), mesh, dim=1),
-              gather_np(sizes, mesh), gather_np(slots, mesh),
-              gather_np(parent, mesh), na)
-    LAST_SESSION["pull_seconds"] += time.perf_counter() - t0
+    with span("dist.pull", LAST_SESSION, "pull_seconds"):
+        pulled = (gather_np(values_t.contiguous(), mesh, dim=1),
+                  gather_np(sizes, mesh), gather_np(slots, mesh),
+                  gather_np(parent, mesh), na)
     LAST_SESSION["pull_bytes"] += sum(a.nbytes for a in pulled[:4])
     return pulled, thr[it:]
 
@@ -385,14 +383,13 @@ def cluster_counts_sharded(
             return engine._empty(counts.shape[0])
         local, n = upload_counts_sharded(counts, mesh)
     _reset_session()
-    t0 = time.perf_counter()
-    v = torch.as_tensor(np.asarray(v_kmers, np.float32), device=local.device)
-    values_t, sizes = kernels.abundance_transform(local, v)
-    engine._sync_for(local.device)()
-    dt = time.perf_counter() - t0
-    LAST_SESSION["device_seconds"] += dt
+    with span("dist.transform", LAST_SESSION, "device_seconds") as sp:
+        v = torch.as_tensor(np.asarray(v_kmers, np.float32),
+                            device=local.device)
+        values_t, sizes = kernels.abundance_transform(local, v)
+        engine._sync_for(local.device)()
     LAST_SESSION["programs"].append((f"transform@{local.shape[1]}",
-                                     round(dt, 4)))
+                                     round(sp.seconds, 4)))
     return _run(mesh, values_t, sizes, n, thresholds, seed, exchange_cap,
                 verbose)
 

@@ -36,7 +36,7 @@ import torch
 from kmerlsh_tpu_torch import kernels
 from kmerlsh_tpu_torch.config import HyperParams
 from kmerlsh_tpu_torch.utils import hbm
-from kmerlsh_tpu_torch.utils.timing import Stages
+from kmerlsh_tpu_torch.utils.timing import Stages, span
 from kmerlsh_tpu_torch.cluster.groups import Groups, as_groups
 from kmerlsh_tpu_torch.io import (clusterio, counts as countsio,
                                   fastq as fastqio, kmc as kmcio)
@@ -465,34 +465,42 @@ def kmer_cluster(params: HyperParams, device="cuda") -> Stages:
 
     if params.extracting:
         with stages.stage("E_wrs"):
-            values, ids_list = clusterio.read_cluster_all(
-                clust_path, len(samples))
-            sizes = ids_list.sizes
-            mesh = _mesh_or_none(device)
-            if mesh is not None and len(ids_list) >= mesh.size:
-                from kmerlsh_tpu_torch.parallel import dist
+            with span("E_wrs.clust_read"):
+                values, ids_list = clusterio.read_cluster_all(
+                    clust_path, len(samples))
+            with span("E_wrs.ttest"):
+                sizes = ids_list.sizes
+                mesh = _mesh_or_none(device)
+                if mesh is not None and len(ids_list) >= mesh.size:
+                    from kmerlsh_tpu_torch.parallel import dist
 
-                pad = -len(ids_list) % mesh.size
-                vp = np.pad(values.astype(np.float32), ((0, pad), (0, 0)))
-                sp = np.pad(sizes.astype(np.int32), (0, pad))
-                fn = dist.sharded_wrs(mesh, n1, n2, params.pval_thresh,
-                                      params.size_thresh)
-                verdicts = fn(dist.shard_rows(mesh, vp),
-                              dist.shard_rows(mesh, sp))[:len(ids_list)]
-            else:
-                verdicts = ttest.wrs_verdicts(
-                    values, sizes, n1, n2, params.pval_thresh,
-                    params.size_thresh, device)
+                    pad = -len(ids_list) % mesh.size
+                    vp = np.pad(values.astype(np.float32), ((0, pad), (0, 0)))
+                    sp = np.pad(sizes.astype(np.int32), (0, pad))
+                    fn = dist.sharded_wrs(mesh, n1, n2, params.pval_thresh,
+                                          params.size_thresh)
+                    verdicts = fn(dist.shard_rows(mesh, vp),
+                                  dist.shard_rows(mesh, sp))[:len(ids_list)]
+                else:
+                    verdicts = ttest.wrs_verdicts(
+                        values, sizes, n1, n2, params.pval_thresh,
+                        params.size_thresh, device)
         LAST_VERDICTS = verdicts
-        keys = countsio.read_hex(os.path.join(params.work_dir,
-                                              countsio.HEX_NAME))
-        gk1, gk2 = diff_key_sets(keys, ids_list, verdicts)
+        with stages.stage("E_diff_keys"):
+            keys = countsio.read_hex(os.path.join(params.work_dir,
+                                                  countsio.HEX_NAME))
+            gk1, gk2 = diff_key_sets(keys, ids_list, verdicts)
         if params.verbose:
             print(f"# of differential kmers in group A : {len(gk1)}")
             print(f"# of differential kmers in group B : {len(gk2)}")
         with stages.stage("E_extract"):
-            _extract_group(samples1, gk1, params.output1, params, device)
-            _extract_group(samples2, gk2, params.output2, params, device)
+            _extract_group(samples1, gk1, params.output1, params, device,
+                           stages)
+            _extract_group(samples2, gk2, params.output2, params, device,
+                           stages)
+        if params.verbose:
+            print(f"[stage] E_extract.parse (parse thread): "
+                  f"{stages.times.get('E_extract.parse', 0.0):.3f}s")
         stages.record("diff_kmers_group1", len(gk1))
         stages.record("diff_kmers_group2", len(gk2))
     return stages
@@ -561,7 +569,7 @@ def _pick_scorer(params: HyperParams, device):
 
 def _extract_group(
     sample_files: list[str], diff_keys: np.ndarray, out_prefix: str,
-    params: HyperParams, device="cuda",
+    params: HyperParams, device="cuda", stages: Stages | None = None,
 ) -> None:
     """= ``IOFQ::Extracting`` (io/ioFastQ.cc:161-195): one output file per
     sample named ``{out_prefix}_{basename(sample)}``. Multi-process: the
@@ -570,7 +578,10 @@ def _extract_group(
     Pipelined three ways: a producer thread parses the next part while the
     current one scores, and with the device scorer part i+1 is dispatched
     before part i's mask is pulled, so parsing and packing, the upload and
-    the kernel overlap."""
+    the kernel overlap. Spans ``E_extract.<step>``: the producer's
+    ``parse`` of each part (its seconds into ``stages``), and on this
+    thread ``parse_wait`` (blocked on the producer), ``score`` (the
+    scorer's dispatch), ``mask`` (its resolver) and ``write``."""
     score = _pick_scorer(params, device)
     if params.verbose:
         print(f"read scorer: {LAST_SCORER}")
@@ -585,7 +596,12 @@ def _extract_group(
             # a parse failure must abort the extraction, not truncate it:
             # record it here and re-raise it after the join
             try:
-                for part in fastqio.read_parts([p]):
+                parts = fastqio.read_parts([p])
+                while True:
+                    with span("E_extract.parse", stages):
+                        part = next(parts, None)
+                    if part is None:
+                        break
                     q.put(part)
             except BaseException as e:      # noqa: BLE001 — re-raised below
                 prod_err.append(e)
@@ -597,11 +613,13 @@ def _extract_group(
         with open(out, "wb") as f:
             pending = None                      # (reads, mask resolver)
             while True:
-                part = q.get()
+                with span("E_extract.parse_wait"):
+                    part = q.get()
                 if part is None:
                     break
-                resolve = score([r.seq for r in part], diff_keys,
-                                params.k, params.kmer_vote)
+                with span("E_extract.score"):
+                    resolve = score([r.seq for r in part], diff_keys,
+                                    params.k, params.kmer_vote)
                 if pending is not None:
                     _write_selected(f, *pending)
                 pending = (part, resolve)
@@ -613,5 +631,7 @@ def _extract_group(
 
 
 def _write_selected(f, part, resolve) -> None:
-    mask = resolve()
-    fastqio.write_fastq(f, (r for r, m in zip(part, mask) if m))
+    with span("E_extract.mask"):
+        mask = resolve()
+    with span("E_extract.write"):
+        fastqio.write_fastq(f, (r for r, m in zip(part, mask) if m))

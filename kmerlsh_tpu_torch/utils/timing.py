@@ -1,22 +1,67 @@
-# Copy of kmerlsh_tpu/utils/timing.py; device_memory_stats reads torch's
-# allocator instead of a JAX device, and a lock guards Stages' updates (the
-# out-of-core flush thread records stages beside the driver's).
-"""Stage timers and structured metrics.
+# Copy of kmerlsh_tpu/utils/timing.py's Stages; a lock guards its updates
+# (the out-of-core flush thread and the mode-E parse thread record beside
+# the main thread), and every stage is a ``span``, which also reaches a
+# torch.profiler trace.
+"""Spans, stage timers and structured metrics.
 
-Replaces the reference's scattered ``chrono`` spans + ``/proc/self/status``
-probes (io/ioMatrix.cc:15-29, function/cluster.cc:259-308) with a context
-manager that records wall-clock per named stage and an optional device-memory
-snapshot; ``torch.profiler`` traces can wrap a run via ``trace_dir``.
+Replaces the reference's scattered ``chrono`` spans (io/ioMatrix.cc:15-29,
+function/cluster.cc:259-308). Every timer of the port is a :class:`span`:
+it measures the host's clock around a block and adds the seconds to a sink
+(a :class:`Stages`, or a session dict under a key); while a
+``torch.profiler`` trace runs (the CLI's ``--trace-dir``, a benchmark's
+traced window), it is also a ``record_function`` named ``kmerlsh.<name>``
+on the trace's clock, so that the device's idle stretches show what the
+host was doing. A span opened on a thread other than the one that started
+the profiler reaches the sink only.
 """
 
 from __future__ import annotations
 
-import contextlib
-import logging
 import threading
 import time
 
-log = logging.getLogger("kmerlsh_tpu_torch")
+import torch
+
+TRACE_PREFIX = "kmerlsh."
+
+_profiling = torch.autograd._profiler_enabled
+_clock = time.perf_counter
+
+
+class span:
+    """``with span(name, sink=None, key=None) as s:`` — the block's host
+    seconds in ``s.seconds`` on exit, added to ``sink``: ``sink.add(key or
+    name, seconds)`` for a :class:`Stages`, ``sink[key] += seconds`` for a
+    dict. When a profiler runs on entry, the block is also the profiler's
+    ``record_function("kmerlsh." + name)``, opened before the clock starts
+    and closed after it stops; a span closes only what it opened. With the
+    profiler off it costs a flag check and two clock reads."""
+
+    __slots__ = ("name", "sink", "key", "seconds", "_t0", "_rf")
+
+    def __init__(self, name: str, sink=None, key: str | None = None):
+        self.name, self.sink, self.key = name, sink, key
+
+    def __enter__(self):
+        if _profiling():
+            self._rf = torch.profiler.record_function(TRACE_PREFIX + self.name)
+            self._rf.__enter__()
+        else:
+            self._rf = None
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, kind, err, tb):
+        self.seconds = seconds = _clock() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(kind, err, tb)
+        sink = self.sink
+        if sink is not None:
+            if isinstance(sink, dict):
+                sink[self.key] += seconds
+            else:
+                sink.add(self.key or self.name, seconds)
+        return False
 
 
 class Stages:
@@ -29,16 +74,9 @@ class Stages:
         self.verbose = verbose
         self._lock = threading.Lock()
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.add(name, dt)
-            if self.verbose:
-                print(f"[stage] {name}: {dt:.3f}s")
+    def stage(self, name: str) -> span:
+        """A :class:`span` of stage ``name``, printed under ``verbose``."""
+        return _Stage(name, self)
 
     def add(self, name: str, seconds: float) -> None:
         """Add ``seconds`` to stage ``name``."""
@@ -57,26 +95,11 @@ class Stages:
             print(f"[metric] {name}: {value}")
 
 
-def host_memory_kb() -> int:
-    """VmSize of this process in KB (= ``IOMat::getValue``,
-    io/ioMatrix.cc:15-29)."""
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmSize:"):
-                    return int(line.split()[1])
-    except OSError:
-        pass
-    return -1
+class _Stage(span):
+    __slots__ = ()
 
-
-def device_memory_stats(device=None) -> dict:
-    """The CUDA caching allocator's byte counters of ``device`` (the
-    current one by default), the analog of the VmSize probe; empty without
-    a card."""
-    import torch
-
-    if not torch.cuda.is_available():
-        return {}
-    stats = torch.cuda.memory_stats(device)
-    return {k: v for k, v in stats.items() if "bytes" in k}
+    def __exit__(self, kind, err, tb):
+        super().__exit__(kind, err, tb)
+        if self.sink.verbose:
+            print(f"[stage] {self.name}: {self.seconds:.3f}s")
+        return False
