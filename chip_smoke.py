@@ -53,7 +53,11 @@ Phases:
      runtime's launch calls under torch.profiler, held to its plan's 2)
      and the segments longer than its plan's C logged; at 2^20 also
      K10 on 2^16 columns of 600 samples (C = 32: many segments take its
-     cooperative launch), exact and timed;
+     cooperative launch), exact and timed; last finalize where the
+     benchmark's metahit124.cluster cell runs it, on the inputs the engine
+     passes it in a session of 2^24 x 124 annealed over 101 iterations
+     (~1.2 M clusters), exact against its plain version, timed, and the
+     pulled triple checked to hold the plain outputs' bytes;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -172,6 +176,9 @@ LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
 SORT_SMALL = (1 << 14, 1 << 16)   # phase 3's smaller sorts: the sharded
                                   # global phase's 4 x 4,096 keys, and 2^16
 FULL = 1 << 24
+CELL_S = 124             # the samples of the benchmark's metahit124 cells
+CELL_THR = np.r_[0.95, 0.95 - (0.95 - 0.8) / 100 * np.arange(100)].astype(
+    np.float32)          # their anneal: -I 100 -N 0.8
 OOC_BATCH = 1 << 22      # phase 5b's --batch-thresh: four batch passes
 FLUSH_ROWS = 1 << 20     # phase 5c's matrix
 FLUSH_BATCH = 1 << 18    # phase 5c's --batch-thresh: four batch passes
@@ -546,8 +553,6 @@ def finalize_timed(vt, sz, sl, parent) -> tuple[dict, int]:
     vt, sz, sl = engine.compact_sort(vt, sz, sl)
     na = int((sz > 0).sum())
     vt, sz, sl = vt[:, :na].contiguous(), sz[:na], sl[:na]
-    k = kernels.finalize(vt, sz, sl, parent)
-    p = kernels.finalize_plain(vt, sz, sl, parent)
     cap0 = parent.shape[0]
     deepest, mean = testdata.forest_depth(parent)
     up = parent.long()
@@ -555,11 +560,60 @@ def finalize_timed(vt, sz, sl, parent) -> tuple[dict, int]:
     log(f"finalize at {cap0}: forest depth {deepest} at most, {mean:.3f} on "
         f"average; pointer jumping would take {rounds} rounds of "
         f"{cuda_ms(lambda: up[up]):.4f} ms (one round by torch indexing)")
-    # state and parent in; members, lens, sizes and centroids out
+    return finalize_checked(vt, sz, sl, parent)[0], na
+
+
+def finalize_checked(vt, sz, sl, parent) -> tuple[dict, tuple]:
+    """finalize on a compacted state held to its plain version bit for bit
+    and both timed. Returns (the kernel's entry, the plain outputs)."""
+    k = kernels.finalize(vt, sz, sl, parent)
+    p = kernels.finalize_plain(vt, sz, sl, parent)
+    s, fc = vt.shape
+    # state and parent in; members (int64), lens, sizes (int64) and
+    # centroids out
     return dict(max_abs_err=_exact("finalize", zip(k, p)),
                 **timings(lambda: kernels.finalize(vt, sz, sl, parent),
                           lambda: kernels.finalize_plain(vt, sz, sl, parent),
-                          8 * S * na + 16 * na + 8 * cap0)), na
+                          8 * s * fc + 20 * fc + 12 * parent.shape[0])), p
+
+
+def phase_finalize_cell() -> None:
+    """finalize where the benchmark's metahit124.cluster cell runs it: a
+    session of 2^24 rows x 124 samples annealed over 101 iterations to 0.8
+    (~1.2 M clusters), finalize's inputs taken as the engine passes them.
+    The kernel is held to its plain version bit for bit and both timed; the
+    pulled triple must hold the plain outputs' bytes in the pull's types
+    ([K, 124] float32 C-contiguous, int64 sizes and members)."""
+    counts, v = testdata.session_input(FULL, CELL_S, 11, DEV)
+    seen, real = [], kernels.finalize
+
+    def capture(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    kernels.finalize = capture
+    try:
+        cents, sizes, groups = engine.cluster_counts(counts, v, CELL_THR,
+                                                     seed=11, n=FULL)
+    finally:
+        kernels.finalize = real
+    del counts
+    (args, _), = seen
+    fc = args[0].shape[1]
+    res, p = finalize_checked(*args)
+    want = (p[3].cpu().numpy(), p[2].cpu().numpy(),
+            p[0].cpu().numpy()[:len(groups.flat)], p[1].cpu().numpy())
+    got = (cents, sizes, groups.flat, np.diff(groups.offsets))
+    if not (cents.dtype == np.float32 and cents.flags.c_contiguous
+            and sizes.dtype == groups.flat.dtype == np.int64
+            and all(np.array_equal(a, b) for a, b in zip(got, want))):
+        raise AssertionError("finalize at the cell: the pulled triple is not "
+                             "the plain outputs")
+    log(f"finalize at the cell ({FULL} x {CELL_S}, {fc} clusters, "
+        f"{engine.LAST_SESSION['pull_host_allocs']} pinned blocks "
+        f"allocated by the pull): exact against its plain version, kernel "
+        f"{res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
 
 
 def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
@@ -1598,19 +1652,19 @@ def phase_flush(tmp: str) -> None:
             raise AssertionError(f"flush {run}: rounds {got['rounds']} / "
                                  f"{got['tmp_bytes']} bytes, sequential "
                                  f"{ref['rounds']} / {ref['tmp_bytes']}")
-    # a deferred pull copies four arrays into pinned memory; the only other
-    # device-to-pinned copies are the scalars .item() reads (the alive
-    # counts), on the kernels' stream; the immediate pulls go to pageable
-    # memory
+    # a deferred pull copies four arrays into pinned memory on a side
+    # stream; the other device-to-pinned copies, the immediate pulls (the
+    # merge rounds') and the scalars .item() reads (the alive counts), run
+    # on the kernels' stream: every batch's four must be off it
     kern, pinned = pinned_copies(trace, os.path.join(tmp, "trace.json"))
-    pulls = [c for c in pinned if c[1] > 8]
+    pulls = [c for c in pinned if c[1] > 8 and c[0] not in kern]
     scalars = [c for c in pinned if c[1] <= 8]
     side = {c[0] for c in pulls}
-    if len(pulls) < 4 * batches or side & kern:
+    if len(pulls) < 4 * batches:
         raise AssertionError(
             f"flush traced: {len(pulls)} device-to-pinned copies of more "
-            f"than 8 bytes on streams {sorted(side)}, kernels on "
-            f"{sorted(kern)}")
+            f"than 8 bytes on streams {sorted(side)} where no kernel ran "
+            f"(kernels on {sorted(kern)}), fewer than {4 * batches}")
     log(f"flush: the three runs' files byte-identical "
         f"({len(ref['files'][0])} + {len(ref['files'][1])} bytes, "
         f"{len(ref['rounds']) - 1} merge rounds); the traced run's "
@@ -2119,6 +2173,7 @@ def main() -> None:
     phase_kernels(OOC_BATCH)   # phase 5b's batch, a phase-7 rank's head
                                # capacity; logged only
     phase_kernels(FULL, exchange=False)        # logged only
+    phase_finalize_cell()                      # logged only
     ended("3")
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)

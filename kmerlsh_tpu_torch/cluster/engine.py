@@ -50,6 +50,13 @@ from kmerlsh_tpu_torch.utils.timing import span
 #   pull_seconds   — device→host copies of the finalize result (span
 #                    pull.copy; a deferred pull's go to its own stats instead)
 #   pull_bytes     — their size;  programs — (name, seconds) per step;
+#   pull_host_allocs — pinned host blocks the copies had to allocate rather
+#                    than take from PyTorch's caching host allocator (0 on
+#                    the CPU, and in a run of same-shape sessions that drops
+#                    each result before the next pull); a delta of the
+#                    process-wide count, so where pulls overlap (the out-of-
+#                    core flush thread's beside a merge round's) each may
+#                    also count the other's;
 #   clusters       — the session's cluster count
 LAST_SESSION: dict = {}
 
@@ -177,7 +184,7 @@ def compact_sort(values_t, sizes, slots):
 
 def _finalize_grouped(values_t, sizes, slots, parent):
     """Root resolution and membership grouping (``finalize`` kernel):
-    (flat members, lens, sizes, centroids [S, fc]); see kernels.finalize."""
+    (flat members, lens, sizes, centroids [fc, S]); see kernels.finalize."""
     return kernels.finalize(values_t.contiguous(), sizes, slots, parent)
 
 
@@ -255,37 +262,46 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
 
 def _pull(flat, lens, csizes, cents, stats: dict, stream=None):
     """The finalize outputs on the host: (centroids [K, S], sizes [K],
-    members), the copies' seconds and bytes added to ``stats``. Lens,
-    sizes and centroids come first, then the members the lens count. By
-    ``.cpu()`` on the current stream, or on a CUDA side ``stream`` into
-    pinned host memory (:func:`_to_pinned`)."""
+    members), the copies' seconds, bytes and pinned allocations added to
+    ``stats``. finalize leaves each output in the layout and type the host
+    returns, so on a card the pull is one copy of each (all of ``flat``,
+    the members and the dead-rooted tail, so that one wait serves) into
+    pinned host memory (:func:`_to_pinned`), on the current stream or a
+    side ``stream``, and the triple is views of those copies; on the CPU
+    it is views of the outputs themselves."""
     with span("pull.copy", stats, "pull_seconds"):
-        if stream is None:
-            lens, csizes, cents = lens.cpu(), csizes.cpu(), cents.cpu()
-        else:
-            lens, csizes, cents = _to_pinned(stream, lens, csizes, cents)
-        offs = np.concatenate([[0], np.cumsum(lens.numpy(), dtype=np.int64)])
-        flat = flat[:int(offs[-1])]
-        flat = flat.cpu() if stream is None else _to_pinned(stream, flat)[0]
+        if flat.is_cuda:
+            if stream is None:
+                stream = torch.cuda.current_stream(flat.device)
+            allocs = _host_allocs()
+            flat, lens, csizes, cents = _to_pinned(stream, flat, lens, csizes,
+                                                   cents)
+            stats["pull_host_allocs"] += _host_allocs() - allocs
     with span("pull.host"):
         stats["pull_bytes"] += sum(t.numel() * t.element_size()
-                                   for t in (lens, csizes, cents, flat))
-        return (np.ascontiguousarray(cents.numpy().T),
-                csizes.numpy().astype(np.int64),
-                Groups(flat.numpy().astype(np.int64), offs))
+                                   for t in (flat, lens, csizes, cents))
+        offs = np.concatenate([[0], np.cumsum(lens.numpy(), dtype=np.int64)])
+        return (cents.numpy(), csizes.numpy(),
+                Groups(flat.numpy()[:offs[-1]], offs))
+
+
+def _host_allocs() -> int:
+    """Blocks PyTorch's caching host allocator has allocated so far in
+    this process (its cudaHostAlloc calls for pinned memory)."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 def _to_pinned(stream, *tensors: torch.Tensor) -> list[torch.Tensor]:
-    """Copies of CUDA ``tensors`` in pinned host memory, made on ``stream``
-    and waited for. Each source is marked as used by ``stream``, so that
-    the caching allocator gives none of its memory to a later allocation
-    of another stream before these copies are done, whenever the caller
-    drops it."""
+    """Copies of CUDA ``tensors`` in pinned host memory from PyTorch's
+    caching host allocator, made on ``stream`` and waited for. Each source
+    is marked as used by ``stream``, so that the caching allocator gives
+    none of its memory to a later allocation of another stream before
+    these copies are done, whenever the caller drops it."""
     hosts = []
     with torch.cuda.stream(stream):
         for t in tensors:
             if not t.is_contiguous():   # a copy, and no kernel, on stream
-                raise ValueError("a deferred pull copies contiguous tensors")
+                raise ValueError("a pull copies contiguous tensors")
             t.record_stream(stream)
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
@@ -328,7 +344,7 @@ def _sync_for(device: torch.device):
 def _reset_session() -> None:
     LAST_SESSION.clear()
     LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
-                        programs=[])
+                        pull_host_allocs=0, programs=[])
 
 
 def upload_counts(counts: np.ndarray, device) -> tuple[torch.Tensor, int]:

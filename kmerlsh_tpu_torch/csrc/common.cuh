@@ -38,6 +38,36 @@ __device__ __forceinline__ void kl_cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Rows ord[c] of the row-major scratch scr ([*, W] words, W a multiple of 4)
+// into a shared tile of n rows of W + 4 words (16-byte aligned, W + 4 = 4
+// mod 8 keeps the 16-byte reads of eight neighbouring rows on distinct
+// banks): ord[c] = order[c] is read once a row, the rows come in by 16-byte
+// cp.async spread over the block's THREADS threads, and the block waits for
+// them. K2's gather and finalize's gather stage their rows so.
+template <int THREADS>
+__device__ __forceinline__ void kl_stage_rows(
+    const unsigned* __restrict__ scr, int W, const int* __restrict__ order,
+    int n, int* ord, unsigned* tile) {
+  const int t = threadIdx.x, ldt = W + 4, Q = W / 4;
+  for (int c = t; c < n; c += THREADS) ord[c] = order[c];
+  __syncthreads();
+  // quad e of the run is (row e / Q, quad e % Q)
+  const int dc = THREADS / Q, dq = THREADS % Q;
+  int c = t / Q, q = t % Q;
+  for (int e = t; e < n * Q; e += THREADS) {
+    kl_cp_async16(tile + c * ldt + 4 * q,
+                  scr + (long long)ord[c] * W + 4 * q);
+    c += dc;
+    q += dq;
+    if (q >= Q) {
+      q -= Q;
+      ++c;
+    }
+  }
+  kl_cp_async_wait_all();
+  __syncthreads();
+}
+
 // Exclusive prefix sum of v over the block (a multiple of 32 threads, at most
 // 1024); *total gets the block's sum. Called once a launch, or with a
 // __syncthreads() between calls.

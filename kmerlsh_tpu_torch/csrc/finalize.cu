@@ -25,27 +25,41 @@
 //      key, its length and its start; the others take cap0 and 0;
 //   7. K9 sort_keys of the cluster keys, in the wrapper: the cluster order
 //      (int32), clusters by smallest member;
-//   8. kernels.permute_state (K2), in the wrapper: values, sizes and
-//      lengths in cluster order;
+//   8. the columns in cluster order, row-major, as the caller takes them:
+//      K2's transpose launch (csrc/permute_state.cu) puts each column's S
+//      values, size and length in a whole row of a scratch [fc, W]; then
+//      kl_fin_gather: row k of the centroids [fc, S] is scratch row
+//      order[k]'s values (zeros for a dead column), sizes[k] its size as
+//      int64, lens[k] its length;
 //   9. kl_fin_block_sums, kl_fin_scan, kl_fin_place: an exclusive scan of
 //      the lengths in cluster order gives each cluster's offset in flat;
-//      link[root] = offset - start; the centroids of dead columns are zeroed;
-//  10. kl_fin_scatter: flat[p + link[root]] = the row at p for positions of
-//      alive segments, flat[p] for the dead-rooted tail.
+//      link[root] = offset - start;
+//  10. kl_fin_scatter: flat[p + link[root]] = the row at p (int64) for
+//      positions of alive segments, flat[p] for the dead-rooted tail.
 // The outputs equal the plain version's (kernels.finalize_plain) bit for
 // bit for state columns with distinct slots, as a session's are. Link
 // values: a row id, a row id with FLAG (an alive root, from step 2), a
 // segment start below 0 (after step 5), an offset difference (after step 9);
 // each step reads link only where the step before left the meaning it needs.
+// The centroids leave row-major and the ids int64 so that the host takes
+// them as they are copied, with no transpose and no widening.
 //
 // Bound on the H100: the rows' sort and the dependent loads of the chases
 // in step 3 (a warp waits for its deepest lane); every other step is one
-// pass over [cap0] or [fc] with a gather of fc entries.
+// pass over [cap0] or [fc] with a gather of fc entries (step 8: of whole
+// scratch rows, in 16-byte pieces).
 
 #include "common.cuh"
 
 #define KL_FIN_FLAG ((int)0x80000000)
 #define KL_FIN_CHUNK 1024   // clusters of one block of the offset scan
+#define KL_FIN_MOVE_THREADS 256   // threads of a kl_fin_gather block
+
+// csrc/permute_state.cu: K2's transpose launch alone, into scratch [M, W]
+int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
+                          long long M, const void* sizes_in,
+                          const void* slots_in, int W, int C, int smem,
+                          void* scratch, cudaStream_t st);
 
 __global__ void kl_fin_mark(long long fc, const int* __restrict__ sizes,
                             const int* __restrict__ slots,
@@ -129,30 +143,61 @@ __global__ void __launch_bounds__(KL_FIN_CHUNK)
   }
 }
 
+// Step 8's gather: a block takes C consecutive cluster rows k, reads each
+// order[k] once, copies the W words of each source row of the scratch into
+// shared memory with 16-byte cp.async (rows of W + 4 words, as K2's gather
+// tile), and writes its n rows of centroids, which are n * S contiguous
+// words, coalesced: word j of the run is (row j / S, value j % S).
+__global__ void __launch_bounds__(KL_FIN_MOVE_THREADS) kl_fin_gather(
+    const unsigned* __restrict__ scr, int S, long long fc,
+    const int* __restrict__ order, int W, int C,
+    unsigned* __restrict__ cents, long long* __restrict__ csizes,
+    int* __restrict__ lens) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* ord = (int*)smem;                        // [C]
+  unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][W + 4]
+  const int t = threadIdx.x, ldt = W + 4;
+  const long long k0 = (long long)blockIdx.x * C;
+  const int n = (int)min((long long)C, fc - k0);
+  kl_stage_rows<KL_FIN_MOVE_THREADS>(scr, W, order + k0, n, ord, tile);
+  if (t < n) {   // C <= KL_FIN_MOVE_THREADS: a thread a row
+    csizes[k0 + t] = (int)tile[t * ldt + S];
+    lens[k0 + t] = (int)tile[t * ldt + S + 1];
+  }
+  unsigned* dst = cents + k0 * S;
+  const int dc = KL_FIN_MOVE_THREADS / S, ds = KL_FIN_MOVE_THREADS % S;
+  int c = t / S, s = t % S;
+  for (int j = t; j < n * S; j += KL_FIN_MOVE_THREADS) {
+    const unsigned* row = tile + c * ldt;
+    dst[j] = row[S] == 0 ? 0u : row[s];   // a dead column's row is zeros
+    c += dc;
+    s += ds;
+    if (s >= S) {
+      s -= S;
+      ++c;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(KL_FIN_CHUNK)
-    kl_fin_place(long long fc, int S, const int* __restrict__ order,
+    kl_fin_place(long long fc, const int* __restrict__ order,
                  const int* __restrict__ slots,
                  const int* __restrict__ cstart, const int* __restrict__ lens,
-                 const int* __restrict__ csizes,
-                 const int* __restrict__ sums, int* __restrict__ link,
-                 float* __restrict__ cents) {
+                 const int* __restrict__ sums, int* __restrict__ link) {
   const long long k = (long long)blockIdx.x * KL_FIN_CHUNK + threadIdx.x;
   const int len = k < fc ? lens[k] : 0;
   int total;
   const int off = sums[blockIdx.x] + kl_block_scan(len, &total);
-  if (k >= fc) return;
-  if (len > 0) {
+  if (k < fc && len > 0) {
     const int i = order[k];
     link[slots[i]] = off - cstart[i];
   }
-  if (csizes[k] == 0)
-    for (int s = 0; s < S; ++s) cents[(long long)s * fc + k] = 0.f;
 }
 
 __global__ void kl_fin_scatter(long long cap0, const int* __restrict__ skey,
                                const int* __restrict__ rows,
                                const int* __restrict__ link,
-                               int* __restrict__ flat) {
+                               long long* __restrict__ flat) {
   long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= cap0) return;
   const int k = skey[p];
@@ -196,14 +241,38 @@ KL_EXPORT int kl_finalize_segments(long long cap0, long long fc,
   return (int)cudaGetLastError();
 }
 
-// Steps 9-10, on the cluster order and the columns moved into it (lens,
-// csizes, cents); sums holds ceil(fc / KL_FIN_CHUNK) ints.
-KL_EXPORT int kl_finalize_place(long long cap0, long long fc, int S,
+// Step 8 for fc > 0 columns (values [S, fc], sizes, clen) and the cluster
+// order: cents [fc, S], csizes (int64) and lens. W, C and smem are
+// kernels.permute_plan(S, fc)'s; scratch holds fc * W ints.
+KL_EXPORT int kl_finalize_columns(int S, long long fc, const void* values,
+                                  const void* sizes, const void* clen,
+                                  const void* order, int W, int C, int smem,
+                                  void* scratch, void* cents, void* csizes,
+                                  void* lens, void* stream) {
+  if (W < S + 2 || W % 8 != 0 || C < 32 || C > KL_FIN_MOVE_THREADS ||
+      KL_FIN_MOVE_THREADS % C != 0 || smem != 4 * C + 4 * C * (W + 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = kl_permute_to_scratch(values, fc, S, fc, sizes, clen, W, C, smem,
+                                  scratch, st);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      kl_fin_gather, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kl_fin_gather<<<kl_blocks(fc, C), KL_FIN_MOVE_THREADS, smem, st>>>(
+      (const unsigned*)scratch, S, fc, (const int*)order, W, C,
+      (unsigned*)cents, (long long*)csizes, (int*)lens);
+  return (int)cudaGetLastError();
+}
+
+// Steps 9-10, on the cluster order and the lengths in it; sums holds
+// ceil(fc / KL_FIN_CHUNK) ints, flat cap0 int64.
+KL_EXPORT int kl_finalize_place(long long cap0, long long fc,
                                 const void* order, const void* slots,
                                 const void* cstart, const void* lens,
-                                const void* csizes, const void* skey,
-                                const void* rows, void* sums, void* link,
-                                void* cents, void* flat, void* stream) {
+                                const void* skey, const void* rows,
+                                void* sums, void* link, void* flat,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (fc > 0) {
     const int nb = (int)((fc + KL_FIN_CHUNK - 1) / KL_FIN_CHUNK);
@@ -211,13 +280,12 @@ KL_EXPORT int kl_finalize_place(long long cap0, long long fc, int S,
                                                    (int*)sums);
     kl_fin_scan<<<1, KL_FIN_CHUNK, 0, st>>>((int*)sums, nb);
     kl_fin_place<<<nb, KL_FIN_CHUNK, 0, st>>>(
-        fc, S, (const int*)order, (const int*)slots,
-        (const int*)cstart, (const int*)lens, (const int*)csizes,
-        (const int*)sums, (int*)link, (float*)cents);
+        fc, (const int*)order, (const int*)slots, (const int*)cstart,
+        (const int*)lens, (const int*)sums, (int*)link);
   }
   const int threads = 256;
   kl_fin_scatter<<<kl_blocks(cap0, threads), threads, 0, st>>>(
       cap0, (const int*)skey, (const int*)rows, (const int*)link,
-      (int*)flat);
+      (long long*)flat);
   return (int)cudaGetLastError();
 }

@@ -79,27 +79,10 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
   extern __shared__ __align__(16) unsigned char smem[];
   int* ord = (int*)smem;                        // [C]
   unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][W + 4]
-  const int t = threadIdx.x, ldt = W + 4, Q = W / 4;
+  const int t = threadIdx.x, ldt = W + 4;
   const long long i0 = (long long)blockIdx.x * C;
   const int n = (int)min((long long)C, M - i0);
-  for (int c = t; c < n; c += KL_MOVE_THREADS) ord[c] = order[i0 + c];
-  __syncthreads();
-  {  // quad e of the run is (column e / Q, quad e % Q)
-    const int dc = KL_MOVE_THREADS / Q, dq = KL_MOVE_THREADS % Q;
-    int c = t / Q, q = t % Q;
-    for (int e = t; e < n * Q; e += KL_MOVE_THREADS) {
-      kl_cp_async16(tile + c * ldt + 4 * q,
-                    scr + (long long)ord[c] * W + 4 * q);
-      c += dc;
-      q += dq;
-      if (q >= Q) {
-        q -= Q;
-        ++c;
-      }
-    }
-  }
-  kl_cp_async_wait_all();
-  __syncthreads();
+  kl_stage_rows<KL_MOVE_THREADS>(scr, W, order + i0, n, ord, tile);
   const int c = t % C;
   if (c >= n) return;
   for (int q = t / C; 4 * q < S + 2; q += KL_MOVE_THREADS / C) {
@@ -115,6 +98,23 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
   }
 }
 
+// Launch (a) alone: the state into the scratch [M, W], for finalize's
+// column move (csrc/finalize.cu kl_finalize_columns), which gathers whole
+// rows out of it. W, C and smem are permute_plan's, as for kl_permute_state.
+int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
+                          long long M, const void* sizes_in,
+                          const void* slots_in, int W, int C, int smem,
+                          void* scratch, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kl_permute_transpose, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kl_permute_transpose<<<kl_blocks(M, C), KL_MOVE_THREADS, 4 * C * (W + 1),
+                         st>>>(
+      (const unsigned*)vin, ld_in, S, M, (const unsigned*)sizes_in,
+      (const unsigned*)slots_in, W, C, (unsigned*)scratch);
+  return (int)cudaGetLastError();
+}
+
 KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
                                long long M, const void* order,
                                const void* sizes_in, const void* slots_in,
@@ -125,20 +125,13 @@ KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
       smem != 4 * C + 4 * C * (W + 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kl_permute_transpose,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(kl_permute_gather,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem)) != cudaSuccess)
-    return (int)err;
-  const unsigned blocks = kl_blocks(M, C);
-  kl_permute_transpose<<<blocks, KL_MOVE_THREADS, 4 * C * (W + 1), st>>>(
-      (const unsigned*)vin, ld_in, S, M, (const unsigned*)sizes_in,
-      (const unsigned*)slots_in, W, C, (unsigned*)scratch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  kl_permute_gather<<<blocks, KL_MOVE_THREADS, smem, st>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      kl_permute_gather, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int e = kl_permute_to_scratch(vin, ld_in, S, M, sizes_in, slots_in,
+                                      W, C, smem, scratch, st);
+  if (e != 0) return e;
+  kl_permute_gather<<<kl_blocks(M, C), KL_MOVE_THREADS, smem, st>>>(
       (const unsigned*)scratch, S, M, (const int*)order, W, C,
       (unsigned*)vout, (unsigned*)sizes_out, (unsigned*)slots_out);
   return (int)cudaGetLastError();

@@ -527,13 +527,13 @@ def finalize_plain(values_t, sizes, slots, parent):
     count = torch.bincount(key, minlength=cap0 + 1)
     member_key = torch.where(key == cap0, cap0, first[key])
     bits = cap0.bit_length()
-    flat = sort_keys_plain(member_key, bits)[1]
+    flat = sort_keys_plain(member_key, bits)[1].to(torch.int64)
     cluster_key = torch.where(sizes > 0, first[slots.long()], cap0)
     order = sort_keys_plain(cluster_key, bits)[1]
     alive = sizes[order] > 0
     lens = torch.where(alive, count[slots[order].long()], 0).to(torch.int32)
-    csizes = torch.where(alive, sizes[order], 0).to(torch.int32)
-    cents = torch.where(alive[None, :], values_t[:, order], 0.0)
+    csizes = torch.where(alive, sizes[order], 0).to(torch.int64)
+    cents = torch.where(alive[:, None], values_t.T[order], 0.0).contiguous()
     return flat, lens, csizes, cents
 
 
@@ -542,13 +542,15 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
     """Group rows by the root of their merge forest.
 
     State columns (values f32 [S, fc], sizes, slots int32 [fc], the slots
-    distinct) and the parent forest (int32 [cap0]) → (flat int32 [cap0]:
+    distinct) and the parent forest (int32 [cap0]) → (flat int64 [cap0]:
     member rows, clusters by smallest member, members ascending, rows of
-    dead roots last; lens, sizes int32 [fc] and centroids f32 [S, fc] in
-    the same cluster order; entries past the alive count are 0). On the
-    card: csrc/finalize.cu's steps, the two stable sorts by
-    :func:`sort_keys` (keys ≤ cap0: cap0.bit_length() bits) and the columns
-    moved by :func:`permute_state`."""
+    dead roots last; lens int32 [fc], sizes int64 [fc] and centroids f32
+    [fc, S], C-contiguous, in the same cluster order; entries of clusters
+    of size 0 are 0): the layouts and types the host returns, so a copy
+    is all the pull needs. On the card: csrc/finalize.cu's steps, the two
+    stable sorts by :func:`sort_keys` (keys ≤ cap0: cap0.bit_length()
+    bits), the columns moved through :func:`permute_state`'s transpose
+    launch and a row gather of finalize's own."""
     if not _on_cuda(values_t, sizes, slots, parent):
         return finalize_plain(values_t, sizes, slots, parent)
     _check(values_t, torch.float32, "values_t", 2)
@@ -560,10 +562,11 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
     cap0 = parent.shape[0]
     dev = parent.device
     i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
     if cap0 == 0:
-        return (torch.empty(0, **i32), torch.zeros(fc, **i32),
-                torch.zeros(fc, **i32),
-                torch.zeros((S, fc), dtype=torch.float32, device=dev))
+        return (torch.empty(0, **i64), torch.zeros(fc, **i32),
+                torch.zeros(fc, **i64),
+                torch.zeros((fc, S), dtype=torch.float32, device=dev))
     link = torch.empty(cap0, **i32)
     key = torch.empty(cap0, **i32)
     _launch("kl_finalize_roots", cap0, fc, sizes.data_ptr(), slots.data_ptr(),
@@ -577,14 +580,22 @@ def finalize(values_t: torch.Tensor, sizes: torch.Tensor,
             link.data_ptr(), end.data_ptr(), ckey.data_ptr(), clen.data_ptr(),
             cstart.data_ptr())
     order = sort_keys(ckey, bits)[1]
-    cents, csizes, lens = permute_state(values_t, sizes, clen, order)
+    cents = torch.empty((fc, S), dtype=torch.float32, device=dev)
+    csizes = torch.empty(fc, **i64)
+    lens = torch.empty(fc, **i32)
+    if fc:
+        plan = permute_plan(S, fc)
+        scratch = torch.empty((fc, plan["W"]), **i32)
+        _launch("kl_finalize_columns", S, fc, values_t.data_ptr(),
+                sizes.data_ptr(), clen.data_ptr(), order.data_ptr(),
+                plan["W"], plan["cols"], plan["smem"], scratch.data_ptr(),
+                cents.data_ptr(), csizes.data_ptr(), lens.data_ptr())
     sums = torch.empty(max(-(-fc // 1024), 1), **i32)
-    flat = torch.empty(cap0, **i32)
-    _launch("kl_finalize_place", cap0, fc, S, order.data_ptr(),
+    flat = torch.empty(cap0, **i64)
+    _launch("kl_finalize_place", cap0, fc, order.data_ptr(),
             slots.data_ptr(), cstart.data_ptr(), lens.data_ptr(),
-            csizes.data_ptr(), skey.data_ptr(), rows.data_ptr(),
-            sums.data_ptr(), link.data_ptr(), cents.data_ptr(),
-            flat.data_ptr())
+            skey.data_ptr(), rows.data_ptr(), sums.data_ptr(),
+            link.data_ptr(), flat.data_ptr())
     launches["finalize"] += 1
     return flat, lens, csizes, cents
 

@@ -42,8 +42,9 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _L, _P),
     "kl_finalize_roots": (_L, _L, _P, _P, _P, _P, _P, _P),
     "kl_finalize_segments": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "kl_finalize_place": (_L, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P),
+    "kl_finalize_columns": (_I, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                            _P, _P),
+    "kl_finalize_place": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "kl_wrs_verdicts": (_P, _L, _L, _I, _I, _P, _F, _F, _I, _I, _I, _I, _I,
                         _I, _P, _P, _P, _P),
     "kl_key_directory": (_P, _I, _I, _P, _P),

@@ -6,7 +6,8 @@ kmerlsh_tpu_torch.testdata <dir>`` writes the FASTQs plus the two-column
 sample lists (``groupA.txt`` / ``groupB.txt``).
 
 ``profile_pool`` draws the abundance profiles of bench.py make_data, from
-which chip_smoke.py and tools/out_of_core_rounds.py make count matrices.
+which chip_smoke.py and tools/out_of_core_rounds.py make count matrices;
+``session_input`` makes such a matrix and its coverage offsets on a device.
 ``wrs_rows``, ``read_part`` and ``score_case`` make the inputs of the
 mode-E kernels from a seed, with their edge cases planted, for the kernel
 tests and chip_smoke.py.
@@ -25,7 +26,7 @@ import numpy as np
 
 from kmerlsh_tpu_torch.kmer import codec
 
-__all__ = ["generate", "profile_pool", "wrs_rows", "read_part", "score_case",
+__all__ = ["generate", "profile_pool", "session_input", "wrs_rows", "read_part", "score_case",
            "window_keys", "marker_keys", "write_hex", "write_source_fastqs",
            "exchange_inputs", "finalize_case", "forest_depth"]
 
@@ -183,6 +184,34 @@ def profile_pool(r: np.random.Generator, n_base: int, s: int) -> np.ndarray:
         cur = np.concatenate(kids)
         nodes.append(cur)
     return np.concatenate(nodes)
+
+
+def session_input(n_rows: int, s: int, seed: int, device):
+    """(uint16 [s, n_rows] counts on ``device``, f32 [s] v): bench.py
+    make_data's distribution (rows drawn from the :func:`profile_pool` of
+    max(64, n_rows >> 7) roots, log-abundance 4 + profile + 0.01 noise,
+    counts clamped to [1, 65535]) made there eight samples at a time, and
+    each sample's mean log count (the coverage offsets of the abundance
+    transform)."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    pool = torch.from_numpy(
+        profile_pool(r, max(64, n_rows >> 7), s).T.copy()).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = torch.randint(0, pool.shape[1], (n_rows,), device=device,
+                         generator=g)
+    counts = torch.empty((s, n_rows), dtype=torch.int16, device=device)
+    v = np.empty(s, np.float32)
+    for a in range(0, s, 8):
+        vals = 4.0 + pool[a:a + 8][:, rows]
+        vals += 0.01 * torch.randn(vals.shape, device=device, generator=g)
+        c = torch.clamp(torch.round(torch.expm1(vals)), 1, 65535).to(
+            torch.int32)
+        v[a:a + 8] = torch.log(c.double()).mean(1).cpu().numpy()
+        # uint16 through int16 bits, which every PyTorch build converts to
+        counts[a:a + 8] = c - ((c > 32767).to(torch.int32) << 16)
+    return counts.view(torch.uint16), v
 
 
 SCORE_CASES = ("empty", "one", "crowded", "edges")

@@ -103,7 +103,7 @@ def test_finalize_grouped_matches_jax_and_host_grouping():
     assert np.array_equal(csizes.numpy()[:n_alive],
                           buf[cap0 + fc:cap0 + 2 * fc][:n_alive])
     jvals = buf[cap0 + 2 * fc:].view(np.float32).reshape(S, fc)[:, :n_alive]
-    assert np.array_equal(cents.numpy()[:, :n_alive], jvals)
+    assert np.array_equal(cents.numpy()[:n_alive], jvals.T)
 
     roots = parent
     for _ in range(4):
@@ -113,7 +113,7 @@ def test_finalize_grouped_matches_jax_and_host_grouping():
     got = Groups(flat.numpy()[:offs[-1]], offs)
     assert np.array_equal(got.flat, want_m.flat)
     assert np.array_equal(got.offsets, want_m.offsets)
-    np.testing.assert_array_equal(cents.numpy()[:, :n_alive].T, want_c)
+    np.testing.assert_array_equal(cents.numpy()[:n_alive], want_c)
 
 
 def test_finalize_at_smaller_capacity_than_session():

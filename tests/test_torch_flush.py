@@ -8,9 +8,11 @@ thread; greedy never defers (the sharded path is checked in
 test_torch_out_of_core.py's two-rank fixture); an error of a flush is
 raised by init_clustering and no later batch is appended; a deferred
 session's finish() returns the immediate path's triple; ``_defers`` is the
-JAX package's condition; Stages loses no update under threads. On the card
+JAX package's condition; Stages loses no update under threads; either
+pull returns views of what it copied, in the triple's types. On the card
 (marker ``cuda``): finish() on a worker thread while the main thread runs
-another full session.
+another full session; a second same-shape pull allocates no pinned
+memory.
 
 The module imports no JAX at its top, so that the card tests run where
 only torch is installed:
@@ -28,6 +30,7 @@ import torch
 
 from kmerlsh_tpu_torch import pipeline
 from kmerlsh_tpu_torch.cluster import engine
+from kmerlsh_tpu_torch.cluster.groups import Groups
 from kmerlsh_tpu_torch.config import HyperParams
 from kmerlsh_tpu_torch.io import clusterio
 from kmerlsh_tpu_torch.utils import hbm
@@ -240,6 +243,57 @@ def test_deferred_finish_matches_immediate():
     assert stats["pull_bytes"] == 0
 
 
+def _pulled_triple(monkeypatch, counts, v, defer: bool, device="cpu"):
+    """One session's pulled triple, its pull's stats, and the tensors the
+    pull hands out views of (flat, lens, sizes, centroids): on the CPU the
+    finalize outputs themselves, on a card their pinned copies."""
+    pulled = []
+    real_pull, real_pinned = engine._pull, engine._to_pinned
+
+    def pull(*a, **kw):
+        pulled[:] = a[:4]
+        return real_pull(*a, **kw)
+
+    def to_pinned(stream, *tensors):
+        pulled[:] = real_pinned(stream, *tensors)
+        return pulled
+    monkeypatch.setattr(engine, "_pull", pull)
+    monkeypatch.setattr(engine, "_to_pinned", to_pinned)
+    if defer:
+        finish, stats = engine.cluster_counts(counts, v, THR, seed=1,
+                                              device=device, defer_pull=True)
+        triple = finish()
+    else:
+        triple = engine.cluster_counts(counts, v, THR, seed=1, device=device)
+        stats = engine.LAST_SESSION
+    return triple, stats, pulled
+
+
+@pytest.mark.parametrize("case", ["immediate", "deferred", "empty"])
+def test_pull_returns_views_of_what_it_copied(monkeypatch, case):
+    """Either pull, and one of a batch whose every column the filter drops,
+    returns centroids float32 C-contiguous [K, S], int64 sizes and int64
+    Groups, each a view of a pulled tensor: no array is copied after the
+    pull. It allocates no pinned memory on the CPU."""
+    S = 12
+    counts = _counts(3000, S, 5) if case != "empty" else np.zeros(
+        (S, 500), np.uint16)
+    triple, stats, pulled = _pulled_triple(
+        monkeypatch, counts, np.full(S, 3.5, np.float32), case == "deferred")
+    cents, sizes, groups = triple
+    assert cents.dtype == np.float32 and cents.flags.c_contiguous
+    assert cents.shape == (len(sizes), S) == (len(groups), S)
+    assert sizes.dtype == groups.flat.dtype == groups.offsets.dtype \
+        == np.int64
+    assert (len(sizes) == 0) == (case == "empty")
+    assert groups.offsets[-1] == len(groups.flat) == sizes.sum()
+    assert len(pulled) == 4
+    flat, _, csizes, cents_t = (t.numpy() for t in pulled)
+    for got, src in ((cents, cents_t), (sizes, csizes), (groups.flat, flat)):
+        assert got.size == 0 or np.shares_memory(got, src)
+    assert stats["pull_host_allocs"] == 0
+
+
 @pytest.mark.parametrize("mem", [None, 80 * 10 ** 9])
 @pytest.mark.parametrize("S", [1, 6, 20, 400])
 def test_defers_is_the_jax_condition(monkeypatch, mem, S):
@@ -295,6 +349,27 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_a_second_pull_reuses_the_pinned_blocks(monkeypatch, card):
+    """At 2^18 x 20: a second same-shape session, run after the first's
+    result was dropped, allocates no pinned host block, its triple is
+    views of its pinned copies, and it equals the first byte for byte."""
+    S = 20
+    counts = _counts(1 << 18, S, 7)
+    v = np.full(S, 3.5, np.float32)
+    first, _, pulled = _pulled_triple(monkeypatch, counts, v, False, card)
+    want = (first[0].copy(), first[1].copy(),
+            Groups(first[2].flat.copy(), first[2].offsets.copy()))
+    del first
+    pulled.clear()   # the patched _to_pinned, which monkeypatch keeps, holds it
+    got, stats, pulled = _pulled_triple(monkeypatch, counts, v, False, card)
+    assert stats["pull_host_allocs"] == 0
+    assert all(t.is_pinned() for t in pulled)
+    assert np.shares_memory(got[0], pulled[3].numpy())
+    assert np.shares_memory(got[2].flat, pulled[0].numpy())
+    _same(got, want)
 
 
 @pytest.mark.cuda

@@ -304,6 +304,39 @@ def test_finalize_exact_after_a_session(dev):
     assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
+def test_finalize_exact_at_the_cell_shape(dev, monkeypatch):
+    """finalize where mode C's benchmark cell runs it: a session of 2^24
+    rows x 124 samples annealed over 101 iterations to 0.8 (~1.2 M
+    clusters). Its four outputs equal the plain version's bit for bit, in
+    the pull's types, and the pulled triple holds the same bytes."""
+    n, s = 1 << 24, 124
+    counts, v = testdata.session_input(n, s, 11, dev)
+    step = (0.95 - 0.8) / 100
+    thr = np.r_[0.95, 0.95 - step * np.arange(100)].astype(np.float32)
+    seen, real = [], kernels.finalize
+
+    def finalize(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(kernels, "finalize", finalize)
+    cents, sizes, groups = engine.cluster_counts(counts, v, thr, seed=11, n=n)
+    del counts
+    (args, k), = seen
+    fc = args[0].shape[1]
+    assert fc > 1 << 19 and args[3].shape == (n,)
+    assert [(t.dtype, tuple(t.shape)) for t in k] == [
+        (torch.int64, (n,)), (torch.int32, (fc,)), (torch.int64, (fc,)),
+        (torch.float32, (fc, s))] and k[3].is_contiguous()
+    p = kernels.finalize_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert cents.dtype == np.float32 and cents.flags.c_contiguous
+    assert np.array_equal(cents, p[3].cpu().numpy())
+    assert np.array_equal(sizes, p[2].cpu().numpy())
+    assert np.array_equal(groups.flat, p[0].cpu().numpy()[:len(groups.flat)])
+    assert np.array_equal(np.diff(groups.offsets), p[1].cpu().numpy())
+
+
 def test_wrappers_refuse_bad_input(dev):
     counts, v, values, sizes = _state(1000, dev)
     with pytest.raises(ValueError):

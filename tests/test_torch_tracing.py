@@ -131,7 +131,7 @@ def test_profiler_off_opens_no_record_function(monkeypatch):
     cents, sizes, groups = engine.cluster_counts(counts, v, thr, seed=4)
     session = engine.LAST_SESSION
     assert set(session) == {"device_seconds", "pull_seconds", "pull_bytes",
-                            "programs", "clusters"}
+                            "pull_host_allocs", "programs", "clusters"}
     names = [p for p, _ in session["programs"]]
     assert names[0] == f"transform@{counts.shape[1]}"
     assert all(re.fullmatch(r"iter\[\d+\]@\d+", p) for p in names[1:-1])
@@ -142,8 +142,9 @@ def test_profiler_off_opens_no_record_function(monkeypatch):
         sum(s for _, s in session["programs"]), abs=5e-5 * len(names))
     assert session["device_seconds"] > 0 and session["pull_seconds"] > 0
     assert session["clusters"] == len(sizes) == len(cents)
-    assert session["pull_bytes"] == (4 * 2 * len(sizes)
-                                     + 4 * cents.size + 4 * len(groups.flat))
+    assert session["pull_bytes"] == (4 * len(sizes) + 8 * len(sizes)
+                                     + 4 * cents.size + 8 * counts.shape[1])
+    assert session["pull_host_allocs"] == 0
 
 
 def test_a_profiler_started_inside_a_span_does_no_harm():
