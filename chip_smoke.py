@@ -57,7 +57,12 @@ Phases:
      benchmark's metahit124.cluster cell runs it, on the inputs the engine
      passes it in a session of 2^24 x 124 annealed over 101 iterations
      (~1.2 M clusters), exact against its plain version, timed, and the
-     pulled triple checked to hold the plain outputs' bytes;
+     pulled triple checked to hold the plain outputs' bytes; then
+     draw_planes, a session's hyperplanes in one launch, bit for bit its
+     plain twin at the benchmark cell's 101 x 124 x 31 (seeds 0,
+     2100000013, 2^32 - 1) and at 101 x 20 x 31, its device function on
+     all 2^23 mantissas the uniform takes, and its time beside the twin's
+     and the per-iteration host draws and uploads it replaced;
   4. the CLI on the synthetic FASTQ fixture: --only K, then B, then C, then
      E with the device scorer and with the native scorer, whose extracted
      reads must agree byte for byte and recover the planted markers;
@@ -217,9 +222,11 @@ KERNELS = {
                       "kmerlsh_tpu/parallel/dist.py:85"),
     "pairing_rounds": ("kmerlsh_tpu_torch/csrc/pairing.cu",
                        "kmerlsh_tpu/cluster/engine.py:168"),
+    "draw_planes": ("kmerlsh_tpu_torch/csrc/planes.cu",
+                    "kmerlsh_tpu/ops/lsh.py:27"),
 }
 MODE_C = ("abundance_transform", "lsh_keys", "sort_keys", "permute_state",
-          "chain_collapse", "finalize")
+          "chain_collapse", "finalize", "draw_planes")
 MODE_E = ("wrs_verdicts", "key_directory", "score_reads")
 EXCHANGE = ("exchange_window", "exchange_fold")
 # Phase 7's bound on the sharded cluster count against one process's, by the
@@ -614,6 +621,68 @@ def phase_finalize_cell() -> None:
         f"allocated by the pull): exact against its plain version, kernel "
         f"{res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+
+
+def _same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    same = got.cpu().contiguous().view(torch.int32) == \
+        want.contiguous().view(torch.int32)
+    if got.shape != want.shape or not bool(same.all()):
+        raise AssertionError(f"{name}: {int((~same).sum())} values differ "
+                             f"from the plain twin's bits")
+
+
+def phase_planes() -> dict:
+    """draw_planes against its plain twin, bit for bit, and timed (its
+    bound: the bytes it writes; its plain time and the per-iteration draws
+    and uploads it replaced on the host clock)."""
+    its = len(CELL_THR)
+    t0 = time.perf_counter()
+    for seed, s in ((0, CELL_S), (2100000013, CELL_S), (2**32 - 1, CELL_S),
+                    (0, S)):
+        _same_bits(f"draw_planes({seed}, {its}, {s})",
+                   kernels.draw_planes(seed, its, s, DEV),
+                   rng.draw_planes(seed, its, s))
+    m = torch.arange(1 << 23, dtype=torch.int64) << 9
+    _same_bits("normal_of_bits on every mantissa",
+               kernels.normal_of_bits(
+                   (m - ((m >> 31) << 32)).to(torch.int32).to(DEV)),
+               rng.normal_of_bits(m))
+    checked = time.perf_counter() - t0
+
+    def host_ms(fn, reps: int = 5) -> float:
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return float(np.median(times))
+
+    seed = 2100000013
+    for s in (S, CELL_S):     # the result line keeps the cell's shape
+        res = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: kernels.draw_planes(seed, its, s, DEV)),
+            plain_ms=host_ms(lambda: rng.draw_planes(seed, its, s)),
+            library_ms=None, **bound(4 * its * s * (lsh.H_MAX + 1)))
+        one_call = host_ms(lambda: kernels.draw_planes(seed, its, s, DEV))
+        per_it = host_ms(lambda: [rng.draw_hyperplanes(seed, it, s).to(DEV)
+                                  for it in range(its)], reps=3)
+        by, calls = traced_launches(
+            lambda: kernels.draw_planes(seed, its, s, DEV), 10)
+        card_ms, traced = by.pop("kl_draw_planes_kernel")
+        if by or calls != 10:
+            raise AssertionError(f"draw_planes: {calls} launch calls and "
+                                 f"{by} for 10 calls")
+        log(f"kernel draw_planes at {its} x {s} x {lsh.H_MAX + 1}: exact "
+            f"(4 draws and 2^23 mantissas checked in {checked:.1f} s)  "
+            f"kernel {res['ms']:.4f} ms (card {card_ms / traced:.4f} ms over "
+            f"{traced} traced kernels, one launch a call)  plain "
+            f"{res['plain_ms']:.1f} ms  bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})  one call on the "
+            f"host clock {one_call:.3f} ms  per-iteration host draws and "
+            f"uploads {per_it:.1f} ms")
+    return {"draw_planes": res}
 
 
 def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
@@ -2174,6 +2243,7 @@ def main() -> None:
                                # capacity; logged only
     phase_kernels(FULL, exchange=False)        # logged only
     phase_finalize_cell()                      # logged only
+    res.update(phase_planes())
     ended("3")
     with tempfile.TemporaryDirectory() as tmp:
         phase_fixture(tmp)

@@ -26,8 +26,9 @@ only), so the result is the same at any capacity. Once per session the
 State is float32 throughout. The reference's TPU workarounds are not
 carried over: f16 sort payloads, f16 pulls, scanned chunk programs and
 buffer donation. Its hyperplanes are reproduced bit for bit up to a few
-ulp (:mod:`kmerlsh_tpu_torch.ops.rng`); a ``hyperplanes`` hook takes
-planes from elsewhere (``it → [S, 31]``).
+ulp (:mod:`kmerlsh_tpu_torch.ops.rng`), a session's all at once by the
+``draw_planes`` kernel; a ``hyperplanes`` hook takes planes from elsewhere
+(``it → [S, 31]``), one iteration at a time.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ from kmerlsh_tpu_torch.utils.timing import span
 #                    core flush thread's beside a merge round's) each may
 #                    also count the other's;
 #   clusters       — the session's cluster count
+#   planes_launches — the session's draws of its planes on the card (1 on a
+#                    card without a hyperplanes hook, else 0)
 LAST_SESSION: dict = {}
 
 Hyperplanes = Callable[[int], "np.ndarray | torch.Tensor"]
@@ -198,12 +201,29 @@ def state_from_numpy(values_t, sizes, slots, parent, device):
             torch.tensor(np.asarray(parent, np.int32), device=dev))
 
 
-def _planes_fn(seed: int, s: int, hook: Hyperplanes | None, device):
+def _planes_fn(seed: int, s: int, hook: Hyperplanes | None, device,
+               iterations: int):
+    """``it → [s, H_MAX + 1]`` planes on ``device`` for a session of
+    ``iterations``. Without a hook the first call draws the whole
+    schedule (``kernels.draw_planes``: one launch on a card, counted in
+    LAST_SESSION["planes_launches"]) and each call returns its contiguous
+    slice; with one, each call uploads what the hook gives."""
+    if hook is not None:
+        def planes(it: int) -> torch.Tensor:
+            p = hook(it)
+            if not isinstance(p, torch.Tensor):
+                p = torch.from_numpy(np.array(p, np.float32))
+            return p.to(device, torch.float32)
+        return planes
+    drawn = None
+
     def planes(it: int) -> torch.Tensor:
-        p = hook(it) if hook is not None else rng.draw_hyperplanes(seed, it, s)
-        if not isinstance(p, torch.Tensor):
-            p = torch.from_numpy(np.array(p, np.float32))
-        return p.to(device, torch.float32)
+        nonlocal drawn
+        if drawn is None:
+            drawn = kernels.draw_planes(seed, iterations, s, device)
+            if drawn.is_cuda:
+                LAST_SESSION["planes_launches"] += 1
+        return drawn[it]
     return planes
 
 
@@ -344,7 +364,7 @@ def _sync_for(device: torch.device):
 def _reset_session() -> None:
     LAST_SESSION.clear()
     LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
-                        pull_host_allocs=0, programs=[])
+                        pull_host_allocs=0, planes_launches=0, programs=[])
 
 
 def upload_counts(counts: np.ndarray, device) -> tuple[torch.Tensor, int]:
@@ -409,9 +429,9 @@ def cluster_counts(
         parent = torch.arange(cap0, dtype=torch.int32, device=dev)
         sync()
     _record(f"transform@{cap0}", sp.seconds)
-    return _drive_session(values_t, sizes, slots, parent, thr,
-                          _planes_fn(seed, S, hyperplanes, dev), verbose,
-                          sync, defer_pull, merge, rounds, deep_init)
+    planes = _planes_fn(seed, S, hyperplanes, dev, len(thr))
+    return _drive_session(values_t, sizes, slots, parent, thr, planes,
+                          verbose, sync, defer_pull, merge, rounds, deep_init)
 
 
 def cluster(
@@ -464,7 +484,7 @@ def cluster(
         thr = np.asarray(thresholds, np.float32)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
     parent = torch.arange(n, dtype=torch.int32, device=dev)
-    return _drive_session(vt, sz, slots, parent, thr,
-                          _planes_fn(seed, s, hyperplanes, dev), verbose,
+    planes = _planes_fn(seed, s, hyperplanes, dev, len(thr))
+    return _drive_session(vt, sz, slots, parent, thr, planes, verbose,
                           _sync_for(dev), merge=merge, rounds=rounds,
                           deep_init=init_rounds is not None)

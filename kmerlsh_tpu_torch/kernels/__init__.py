@@ -29,13 +29,15 @@ main path went through the kernels.
 | exchange_fold        | csrc/exchange.cu       | parallel/dist.py _realign_to, the global  |
 |                      |                        | parent fold and the write-back            |
 | pairing_rounds       | csrc/pairing.cu        | engine.py pairing_merge (its rounds)      |
+| draw_planes          | csrc/planes.cu         | ops/lsh.py:27-30 jax.random.normal (each  |
+|                      |                        | iteration's hyperplanes, in-graph)        |
 """
 
 from __future__ import annotations
 
 import torch
 
-from kmerlsh_tpu_torch.ops import lsh, transform, ttest
+from kmerlsh_tpu_torch.ops import lsh, rng, transform, ttest
 from kmerlsh_tpu_torch.ops.lsh import BIG_KEY
 from kmerlsh_tpu_torch.ops.segment import alive_rank_in_segment, segment_starts
 
@@ -77,7 +79,7 @@ launches: dict[str, int] = {
     "permute_state": 0,
     "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "key_directory": 0,
     "score_reads": 0, "exchange_window": 0, "exchange_fold": 0,
-    "pairing_rounds": 0,
+    "pairing_rounds": 0, "draw_planes": 0,
 }
 # kernel launches on the card of the wrappers that make more than one a
 # call (K10: its plan's "launches")
@@ -1081,3 +1083,40 @@ def pairing_rounds(svals: torch.Tensor, ssizes: torch.Tensor,
         launches["pairing_rounds"] += 1
         card_launches["pairing_rounds"] += plan["launches"]
     return svals, ssizes, mi
+
+
+# --- the hyperplanes' draw ------------------------------------------------------
+
+def draw_planes(seed: int, iterations: int, S: int, device) -> torch.Tensor:
+    """f32 [iterations, S, H_MAX + 1] on ``device``, slice ``it`` bit for bit
+    ``rng.draw_hyperplanes(seed, it, S)``: on the CPU the plain twin
+    ``rng.draw_planes``, on a card one launch on the current stream."""
+    rng.PRNGKey(seed)                  # refuses a seed outside [0, 2^32)
+    if iterations < 0 or S < 0:
+        raise ValueError(f"draw_planes: {iterations} iterations of {S} rows")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return rng.draw_planes(seed, iterations, S)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty((iterations, S, lsh.H_MAX + 1), dtype=torch.float32,
+                      device=dev)
+    if out.numel():
+        with torch.cuda.device(dev):
+            _launch("kl_draw_planes", seed, iterations, S, out.data_ptr())
+        launches["draw_planes"] += 1
+    return out
+
+
+def normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The normals ``draw_planes`` makes of given random words (int32
+    holding uint32): on a card its device function alone, so that a test
+    can feed it every mantissa; on the CPU ``rng.normal_of_bits``."""
+    if not _on_cuda(bits):
+        return rng.normal_of_bits(bits.to(torch.int64) & 0xFFFFFFFF)
+    _check(bits, torch.int32, "bits")
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    if bits.numel():
+        _launch("kl_normal_of_bits", bits.data_ptr(), bits.numel(),
+                out.data_ptr())
+    return out

@@ -55,6 +55,8 @@ SIGNATURES = {
                          _P, _L, _L, _P, _P),
     "kl_pairing_rounds": (_P, _I, _L, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I,
                           _I, _I, _P, _L, _P),
+    "kl_draw_planes": (_L, _I, _I, _P, _P),
+    "kl_normal_of_bits": (_P, _L, _P, _P),
 }
 
 _lock = threading.Lock()

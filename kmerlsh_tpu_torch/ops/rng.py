@@ -18,6 +18,11 @@ The reference draws each iteration's hyperplanes as
 Key data and uniform bits match exactly; the normals agree to a few ulp,
 because ``log1p`` is evaluated by :mod:`.xlamath`'s emulation of XLA's.
 uint32 words ride in int64 tensors so that wrap-around is an explicit mask.
+A key's words may be int64 tensors of shape [I, 1]: the draw then has a
+leading axis of I keys (:func:`draw_planes`, every iteration at once).
+
+:func:`draw_planes` is the plain twin of the ``draw_planes`` CUDA kernel
+(``csrc/planes.cu``), which draws a session's planes on the card.
 """
 
 from __future__ import annotations
@@ -70,16 +75,20 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return int(a), int(b)
 
 
-def random_bits(key: tuple[int, int], shape: tuple[int, ...]) -> torch.Tensor:
+def random_bits(key, shape: tuple[int, ...]) -> torch.Tensor:
     """32 random bits per element (int64 holding uint32), partitionable
-    layout."""
+    layout; [I, *shape] for a key of [I, 1] tensors."""
     i = torch.arange(int(np.prod(shape)), dtype=torch.int64)
     a, b = threefry2x32(key, i >> 32, i & _M32)
-    return (a ^ b).reshape(shape)
+    return (a ^ b).reshape(a.shape[:-1] + tuple(shape))
 
 
 def uniform(key, shape, minval: float, maxval: float) -> torch.Tensor:
-    bits = random_bits(key, shape)
+    return _uniform_of_bits(random_bits(key, shape), minval, maxval)
+
+
+def _uniform_of_bits(bits: torch.Tensor, minval: float,
+                     maxval: float) -> torch.Tensor:
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     lo = torch.tensor(minval, dtype=torch.float32)
     span = torch.tensor(maxval, dtype=torch.float32) - lo
@@ -103,11 +112,26 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key, shape) -> torch.Tensor:
+    return normal_of_bits(random_bits(key, shape))
+
+
+def normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The float32 normal that ``normal`` makes of 32 random bits (int64
+    holding uint32); only the top 23 bits matter."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
+    u = _uniform_of_bits(bits, lo, 1.0)
     return torch.tensor(np.sqrt(2.0), dtype=torch.float32) * erfinv(u)
 
 
 def draw_hyperplanes(seed: int, it: int, num_samples: int) -> torch.Tensor:
     """f32 [num_samples, H_MAX + 1] on the CPU: iteration ``it``'s planes."""
     return normal(fold_in(PRNGKey(seed), it), (num_samples, H_MAX + 1))
+
+
+def draw_planes(seed: int, iterations: int, num_samples: int) -> torch.Tensor:
+    """f32 [iterations, num_samples, H_MAX + 1] on the CPU: slice ``it`` is
+    ``draw_hyperplanes(seed, it, num_samples)`` bit for bit, the same ops
+    over every iteration's key at once."""
+    its = torch.arange(iterations, dtype=torch.int64)[:, None]
+    key = threefry2x32(PRNGKey(seed), torch.zeros_like(its), its & _M32)
+    return normal(key, (num_samples, H_MAX + 1))

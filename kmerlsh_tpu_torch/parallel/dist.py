@@ -42,7 +42,7 @@ import torch
 from kmerlsh_tpu_torch import kernels
 from kmerlsh_tpu_torch.cluster import engine
 from kmerlsh_tpu_torch.cluster.groups import Groups
-from kmerlsh_tpu_torch.ops import lsh, rng
+from kmerlsh_tpu_torch.ops import lsh
 from kmerlsh_tpu_torch.parallel.mesh import Mesh, make_mesh
 from kmerlsh_tpu_torch.parallel.multihost import gather_np
 from kmerlsh_tpu_torch.utils.timing import span
@@ -56,7 +56,9 @@ EXCHANGE_CAP = 4096   # survivor summaries exchanged per rank per iteration
 #   sharded_iterations — iterations run sharded (the tail starts there);
 #   alive — the global alive count then;
 #   tail — "handoff", "terminal" or None;  gathered — elements the
-#   exchanges gathered on this rank;  exchanges — their number
+#   exchanges gathered on this rank;  exchanges — their number;
+#   planes_launches — the planes' draws on the card (the schedule's once,
+#     the tail's once)
 LAST_SESSION: dict = {}
 
 HEAD_ITERS = 3        # iterations before the first host decision
@@ -133,13 +135,15 @@ def _drive(mesh: Mesh, values_t, sizes, slots, parent, thresholds, seed: int,
     LAST_SESSION["exchanges"] = 0
     na = mesh.all_sum(int((sizes > 0).sum()))
 
+    planes = kernels.draw_planes(seed, total, s, dev)   # the schedule's
+    LAST_SESSION["planes_launches"] += int(planes.is_cuda and total > 0)
+
     def run(tag: str, lo: int, hi: int) -> None:
         nonlocal values_t, sizes, slots, na
         with span("dist.iters", LAST_SESSION, "device_seconds") as sp:
             for it in range(lo, hi):
-                planes = rng.draw_hyperplanes(seed, it, s).to(dev)
                 values_t, sizes, slots, na = _one_dist_iteration(
-                    mesh, values_t, sizes, slots, parent, na, planes,
+                    mesh, values_t, sizes, slots, parent, na, planes[it],
                     float(thr[it]), it, e, c0_loc)
             sync()
         LAST_SESSION["programs"].append((tag, round(sp.seconds, 4)))
@@ -237,7 +241,8 @@ def _assemble(values_t, sizes, slots, parent, n_rows: int, device,
     cents, tsizes, members = engine.cluster(
         al_vals.T, sizes=al_sizes.astype(np.int32), thresholds=thr, seed=seed,
         verbose=verbose, device=device)
-    for k in ("device_seconds", "pull_seconds", "pull_bytes"):
+    for k in ("device_seconds", "pull_seconds", "pull_bytes",
+              "planes_launches"):
         LAST_SESSION[k] += engine.LAST_SESSION[k]
     LAST_SESSION["programs"].extend(
         ("tail_" + t, d) for t, d in engine.LAST_SESSION["programs"])
@@ -277,7 +282,7 @@ def _tail_schedule(rest: np.ndarray, thresholds, mesh: Mesh):
 def _reset_session() -> None:
     LAST_SESSION.clear()
     LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
-                        programs=[], tail=None)
+                        planes_launches=0, programs=[], tail=None)
 
 
 def _run(mesh: Mesh, values_t, sizes, n_rows: int, thresholds, seed: int,

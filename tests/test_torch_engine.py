@@ -249,3 +249,27 @@ def test_compact_sort_matches_jax():
     assert np.array_equal(tv.numpy(), np.asarray(jv))
     assert np.array_equal(ts.numpy(), np.asarray(js))
     assert np.array_equal(tsl.numpy(), np.asarray(jsl))
+
+
+# --- a session's hyperplanes, drawn at once --------------------------------
+
+def test_session_draws_its_planes_as_the_hook_would():
+    """cluster_counts on the CPU without a hook (the schedule's planes
+    drawn at once) gives the session a hook of per-iteration draws gives,
+    and neither draws on a card."""
+    from kmerlsh_tpu_torch import testdata
+    from kmerlsh_tpu_torch.ops import rng
+
+    counts, v = testdata.session_input(3000, 20, 5, "cpu")
+    thr = np.r_[0.95, 0.95 - 0.015 * np.arange(10)].astype(np.float32)
+    seed = 2**32 - 3
+    got = engine.cluster_counts(counts, v, thr, seed=seed)
+    assert engine.LAST_SESSION["planes_launches"] == 0
+    want = engine.cluster_counts(
+        counts, v, thr, seed=seed,
+        hyperplanes=lambda it: rng.draw_hyperplanes(seed, it, 20))
+    assert engine.LAST_SESSION["planes_launches"] == 0
+    for a, b in zip(got[:2] + (got[2].flat, got[2].offsets),
+                    want[:2] + (want[2].flat, want[2].offsets)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert 1 < len(got[1]) < 3000

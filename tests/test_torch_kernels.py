@@ -778,3 +778,77 @@ def test_pairing_rounds_refuses_bad_input(dev):
     with pytest.raises(ValueError):
         kernels.pairing_rounds(sv, ss, sl, skey, 2, 0.5, 4,
                                smi=torch.full((4097,), -1, device=dev))
+
+
+# --- draw_planes: a session's hyperplanes -------------------------------------
+
+def _bits32(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("seed,s", [(0, 124), (2100000013, 124),
+                                    (2**32 - 1, 124), (0, S)])
+def test_draw_planes_exact(dev, seed, s):
+    """The kernel's 101 iterations' planes (the benchmark cell's schedule)
+    equal the plain twin's bit for bit, and each slice the per-iteration
+    draw."""
+    before = kernels.launches["draw_planes"]
+    got = kernels.draw_planes(seed, 101, s, dev)
+    assert kernels.launches["draw_planes"] == before + 1
+    assert got.shape == (101, s, 31) and got.is_cuda
+    assert torch.equal(_bits32(got), _bits32(rng.draw_planes(seed, 101, s)))
+    for it in (0, 50, 100):
+        assert torch.equal(_bits32(got[it]),
+                           _bits32(rng.draw_hyperplanes(seed, it, s)))
+
+
+def test_normal_of_bits_exact_on_every_mantissa(dev):
+    """The uniform keeps the top 23 of the 32 bits, so the bits → normal
+    map takes 2^23 values: the kernel's device function equals the plain
+    ops on every one, so no seed can give a plane an ulp off."""
+    m = torch.arange(1 << 23, dtype=torch.int64) << 9
+    m = m | (torch.arange(1 << 23, dtype=torch.int64) * 37 & 511)
+    words = (m - ((m >> 31) << 32)).to(torch.int32)
+    got = kernels.normal_of_bits(words.to(dev))
+    want = rng.normal_of_bits(m)
+    same = _bits32(got) == _bits32(want)
+    assert bool(same.all()), f"{int((~same).sum())} mantissas differ"
+
+
+def test_session_draws_its_planes_once_on_the_card(dev):
+    """A cluster_counts session on the card draws its planes in one launch
+    and clusters as a session whose hook uploads the per-iteration draws,
+    byte for byte."""
+    import hashlib
+
+    counts, v = testdata.session_input(1 << 16, S, 3, dev)
+    thr = np.r_[0.95, 0.95 - 0.0075 * np.arange(20)].astype(np.float32)
+    seed = 2100000013
+
+    def digest(res) -> str:
+        h = hashlib.sha256()
+        for a in (res[0], res[1], res[2].flat, res[2].offsets):
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    kernels.reset_launches()
+    got = digest(engine.cluster_counts(counts, v, thr, seed=seed, n=1 << 16))
+    assert engine.LAST_SESSION["planes_launches"] == 1
+    assert kernels.launches["draw_planes"] == 1
+    want = digest(engine.cluster_counts(
+        counts, v, thr, seed=seed, n=1 << 16,
+        hyperplanes=lambda it: rng.draw_hyperplanes(seed, it, S)))
+    assert engine.LAST_SESSION["planes_launches"] == 0
+    assert kernels.launches["draw_planes"] == 1
+    assert got == want
+
+
+def test_draw_planes_refuses_bad_input(dev):
+    for seed in (-1, 2**32):
+        with pytest.raises(ValueError):
+            kernels.draw_planes(seed, 3, S, dev)
+    with pytest.raises(ValueError):
+        kernels.draw_planes(0, -1, S, dev)
+    with pytest.raises(ValueError):
+        kernels.normal_of_bits(torch.zeros(4, dtype=torch.int64, device=dev))
+    assert kernels.draw_planes(0, 0, S, dev).shape == (0, S, 31)

@@ -562,3 +562,121 @@ def test_pairing_rounds_refuses_bad_arguments():
     for shift, rounds in ((-1, 1), (31, 1), (0, -1)):
         with pytest.raises(ValueError):
             kernels.pairing_rounds(v, z, z, z, shift, 0.9, rounds)
+
+
+# --- draw_planes ---------------------------------------------------------------
+
+def _fma64(a, b, c):
+    """kl_fma64: a float64 product and sum, rounded once to float32."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _xla_log(x):
+    f = np.float32
+    m, ex = np.frexp(x)
+    small = m < f(0.707106781186547524)
+    e = ex.astype(f) - small.astype(f)
+    t = (m - f(1)) + np.where(small, m, f(0))
+    t2 = t * t
+    t3 = t2 * t
+    p = [f(v) for v in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                        -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                        2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)]
+    y, y1, y2 = (_fma64(t, p[0], p[1]), _fma64(t, p[3], p[4]),
+                 _fma64(t, p[6], p[7]))
+    y, y1, y2 = _fma64(y, t, p[2]), _fma64(y1, t, p[5]), _fma64(y2, t, p[8])
+    y = _fma64(_fma64(y, t3, y1), t3, y2) * t3
+    y = _fma64(f(-2.12194440e-4), e, y)
+    return ((t - t2 * f(0.5)) + y) + f(0.693359375) * e
+
+
+def _xla_log1p(x):
+    from kmerlsh_tpu_torch.ops import xlamath
+
+    x2 = x * x
+    num = np.zeros_like(x)
+    den = np.zeros_like(x)
+    for c in xlamath._LOG1P_NUM:
+        num = _fma64(num, x, np.float32(c))
+    for c in xlamath._LOG1P_DEN:
+        den = _fma64(den, x, np.float32(c))
+    r = _fma64(np.float32(-0.5), x2, (x * x2) * (num / den))
+    return np.where(np.abs(x) < np.float32(xlamath._LOG1P_SMALL), x + r,
+                    _xla_log(np.float32(1) + x))
+
+
+def _kernel_normal_of_bits(bits: np.ndarray, below: np.ndarray) -> np.ndarray:
+    """kl_normal_of_bits_f in numpy float32 (each op rounded once), with
+    the table ``below`` of kl_twin_sqrt."""
+    from kmerlsh_tpu_torch.ops import rng
+
+    f = np.float32
+    lo = np.array([0xBF7FFFFF], np.uint32).view(f)[0]
+    mant = ((bits >> 9) | 0x3F800000).astype(np.uint32).view(f)
+    u = np.maximum(lo, (mant - f(1)) * (f(1) - lo) + lo)
+    w = -_xla_log1p(-(u * u))
+    small = w < f(5)
+    s = np.sqrt(w)
+    s = np.where(np.isin(w.view(np.uint32), below),
+                 (s.view(np.uint32) - 1).view(f), s)
+    w = np.where(small, w - f(2.5), s - f(3))
+    p = np.where(small, f(rng._ERFINV_SMALL[0]), f(rng._ERFINV_LARGE[0]))
+    for a, b in zip(rng._ERFINV_SMALL[1:], rng._ERFINV_LARGE[1:]):
+        p = _fma64(p, w, np.where(small, f(a), f(b)))
+    e = np.where(np.abs(u) == 1, u * np.finfo(f).max, p * u)
+    return f(1.4142135623730951) * e
+
+
+def _threefry(k0, k1, x0, x1):
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    a, b = x0 + ks[0], x1 + ks[1]
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            a = a + b
+            b = ((b << np.uint32(r)) | (b >> np.uint32(32 - r))) ^ a
+        a = a + ks[(i + 1) % 3]
+        b = b + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return a, b
+
+
+def _sqrt_table() -> np.ndarray:
+    import re
+
+    src = (build.CSRC / "planes.cu").read_text()
+    body = re.search(r"kl_sqrt_below\[KL_SQRT_BELOW\] = \{([^}]*)\}", src)
+    return np.array([int(v, 16) for v in re.findall(r"0x([0-9A-F]{8})u",
+                                                    body.group(1))], np.uint32)
+
+
+@pytest.mark.parametrize("seed,iterations,s", [(0, 3, 124), (2**32 - 1, 2, 20),
+                                               (2100000013, 101, 1)])
+def test_draw_planes_kernel_in_numpy_is_the_twin(seed, iterations, s):
+    """kl_draw_planes_kernel transcribed into numpy: thread g folds the key
+    of iteration g / (31 s), hashes counter g % (31 s) and maps the bits."""
+    from kmerlsh_tpu_torch.ops import rng
+
+    g = np.arange(iterations * s * 31, dtype=np.int64)
+    it, i = (g // (31 * s)).astype(np.uint32), (g % (31 * s)).astype(np.uint32)
+    zero = np.zeros_like(it)
+    with np.errstate(over="ignore"):
+        k0, k1 = _threefry(zero, np.full_like(it, seed), zero, it)
+        a, b = _threefry(k0, k1, zero, i)
+    got = _kernel_normal_of_bits(a ^ b, _sqrt_table())
+    want = rng.draw_planes(seed, iterations, s).numpy().reshape(-1)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_normal_of_bits_in_numpy_is_the_twin_on_the_tails():
+    """kl_normal_of_bits_f in numpy equals rng.normal_of_bits on every
+    mantissa whose |u| > 0.99 (log1p's log branch, erfinv's sqrt branch and
+    the sqrt table) and on every 61st of the rest."""
+    from kmerlsh_tpu_torch.ops import rng
+
+    m = np.arange(1 << 23, dtype=np.uint32)
+    u = (m.astype(np.float64) * 2 ** -22 - 1)
+    m = m[(np.abs(u) > 0.99) | (m % 61 == 0)]
+    bits = m << np.uint32(9)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        got = _kernel_normal_of_bits(bits, _sqrt_table())
+    want = rng.normal_of_bits(torch.from_numpy(bits.astype(np.int64)))
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
