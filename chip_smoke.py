@@ -870,7 +870,7 @@ def phase_kernels(M: int = SMALL, exchange: bool = True,
         na = int((sz > 0).sum())
         vt, sz, sl = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(DEV),
-            0.95 - 0.01 * it, engine._active_h_of(na))
+            0.95 - 0.01 * it, engine._active_h_of(na))[:3]
     if M == FULL:   # logged only
         sort_split(key, lsh.KEY_BITS, f"lsh_keys at {M}")
         rows = root_keys(sz, sl, parent)
@@ -1093,7 +1093,7 @@ def finalize_deep() -> None:
     for it in range(testdata.FOREST_ROUNDS):
         vt, sz, sl = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(DEV),
-            0.95 - 0.0075 * it, engine._active_h_of(int((sz > 0).sum())))
+            0.95 - 0.0075 * it, engine._active_h_of(int((sz > 0).sum())))[:3]
     entry, na = finalize_timed(vt, sz, sl, parent)
     log(f"finalize after {testdata.FOREST_ROUNDS} iterations: {na} clusters "
         f"over {SMALL} rows, exact; kernel {entry['ms']:.4f} ms  plain "

@@ -20,8 +20,10 @@ After every iteration the host reads one int, the alive count: the sort put
 every dead column behind the alive ones, so the next iteration runs on the
 first ``n_alive_before`` columns only (a view, no copy). Merge decisions do
 not depend on capacity (the quantization range is taken over alive rows
-only), so the result is the same at any capacity. Once per session the
-``finalize`` kernel groups the rows by root.
+only), so the result is the same at any capacity, nor on slot ids, which
+say only where the forest is written. Once per session the ``finalize``
+kernel groups the rows by root; a sharded session (parallel/dist.py) ends
+so too, through :func:`_session` on its gathered survivors and forest.
 
 State is float32 throughout. The reference's TPU workarounds are not
 carried over: f16 sort payloads, f16 pulls, scanned chunk programs and
@@ -159,22 +161,24 @@ def pairing_merge(values_t, sizes, keys, proj, threshold: float,
 
 
 def _one_iteration(values_t, sizes, slots, parent, hyperplanes, threshold,
-                   h: int, merge: str = "chain", rounds: int = 4):
-    """One LSH iteration: (values_t, sizes, slots) in sorted order, with the
-    merges folded into ``parent`` in place. ``merge`` picks the
+                   h: int, merge: str = "chain", rounds: int = 4,
+                   base: int = 0):
+    """One LSH iteration: (values_t, sizes, slots, merged_into) in sorted
+    order, ``merged_into`` the slot that absorbed a position (-1 where none
+    did), with the merges folded into ``parent`` (the entry of slot s at
+    s - ``base``; None folds nothing) in place. ``merge`` picks the
     within-bucket primitive: ``"chain"`` (one neighbour-chain collapse) or
     ``"pairing"`` (``rounds`` adjacent rank-pair rounds)."""
     key, _ = kernels.lsh_keys(values_t, sizes, hyperplanes, h)
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     svt, ssize, sslots = kernels.permute_state(values_t, sizes, slots, order)
     if merge == "pairing":
-        svt, ssize, _ = kernels.pairing_rounds(
+        svt, ssize, smi = kernels.pairing_rounds(
             svt, ssize, sslots, skey, kernels.free_bits(h), threshold,
-            rounds, None, parent)
-        return svt, ssize, sslots
-    new_vt, new_size, new_slots, _ = kernels.chain_collapse(
-        svt, ssize, sslots, skey, threshold, h, None, parent)
-    return new_vt, new_size, new_slots
+            rounds, None, parent, base)
+        return svt, ssize, sslots, smi
+    return kernels.chain_collapse(svt, ssize, sslots, skey, threshold, h,
+                                  None, parent, base)
 
 
 def compact_sort(values_t, sizes, slots):
@@ -193,9 +197,11 @@ def _finalize_grouped(values_t, sizes, slots, parent):
 
 def state_from_numpy(values_t, sizes, slots, parent, device):
     """Session state pulled from the reference (numpy) as this engine's
-    tensors on ``device``."""
+    tensors on ``device``, in fresh C-order copies: the kernels take a last
+    stride of 1, which numpy need not give an axis of length 1."""
     dev = torch.device(device)
-    return (torch.tensor(np.asarray(values_t, np.float32), device=dev),
+    return (torch.tensor(np.array(values_t, np.float32, order="C"),
+                         device=dev),
             torch.tensor(np.asarray(sizes, np.int32), device=dev),
             torch.tensor(np.asarray(slots, np.int32), device=dev),
             torch.tensor(np.asarray(parent, np.int32), device=dev))
@@ -254,9 +260,11 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
             with span("iter.planes"):
                 p = planes(it)
             with span("iter.enqueue"):
+                # [:3]: merged_into is dropped here, not held into the
+                # next iteration's peak
                 values_t, sizes, slots = _one_iteration(
                     values_t, sizes, slots, parent, p, float(threshold), h,
-                    kind, rounds)
+                    kind, rounds)[:3]
             with span("iter.wait"):                # the one read per iteration
                 na_next = int((sizes > 0).sum())
         _record(f"iter[{it}]@{cap}", sp.seconds)
@@ -467,8 +475,8 @@ def cluster(
         arr = np.array(values, np.float32)
         vt = torch.from_numpy(arr if transposed else arr.T).to(dev)
     s, n = vt.shape
-    _reset_session()
     if n == 0:
+        _reset_session()
         return _empty(s)
     vt = vt.contiguous()
     if sizes is None:
@@ -483,8 +491,22 @@ def cluster(
     else:
         thr = np.asarray(thresholds, np.float32)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
-    parent = torch.arange(n, dtype=torch.int32, device=dev)
-    planes = _planes_fn(seed, s, hyperplanes, dev, len(thr))
-    return _drive_session(vt, sz, slots, parent, thr, planes, verbose,
-                          _sync_for(dev), merge=merge, rounds=rounds,
-                          deep_init=init_rounds is not None)
+    return _session(vt, sz, slots, slots.clone(), thr, seed, hyperplanes,
+                    verbose, merge, rounds, deep_init=init_rounds is not None)
+
+
+def _session(values_t, sizes, slots, parent, thresholds, seed: int,
+             hyperplanes: Hyperplanes | None = None, verbose: bool = False,
+             merge: str = "chain", rounds: int = 4, deep_init: bool = False):
+    """Run a given state (values f32 [S, n], sizes, slots int32 [n]) and
+    forest (int32 [cap0], slot s at s) through the schedule ``thresholds``
+    to the end, a new session: the planes of ``seed`` (none drawn for an
+    empty schedule), then :func:`_drive_session`, which ends in
+    compact_sort, finalize and the pull."""
+    _reset_session()
+    dev = values_t.device
+    planes = _planes_fn(seed, values_t.shape[0], hyperplanes, dev,
+                        len(thresholds))
+    return _drive_session(values_t, sizes, slots, parent, thresholds, planes,
+                          verbose, _sync_for(dev), merge=merge, rounds=rounds,
+                          deep_init=deep_init)

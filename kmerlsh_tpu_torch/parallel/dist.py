@@ -5,17 +5,18 @@ Each rank holds a column shard of the state (values f32 [S, c_loc], sizes,
 slots) and the parent forest of its original slots [rank·c0_loc,
 (rank+1)·c0_loc). One iteration, run eagerly on every rank:
 
-  1. **local phase**: the rank's shard is hashed against the replicated
-     hyperplanes (``lsh_keys``), sorted and chain-collapsed (``sort_keys``,
-     ``permute_state``, ``chain_collapse``, which folds the merges into the
-     parent shard), exactly as a single-device iteration;
+  1. **local phase**: the rank's shard runs a single-device iteration
+     (``engine._one_iteration``: ``lsh_keys`` against the replicated
+     hyperplanes, ``sort_keys``, ``permute_state``, ``chain_collapse``),
+     its merges folded into the parent shard at the rank's slot base;
   2. **exchange**: the ``exchange_window`` kernel takes a fixed window of
      ``e`` alive survivors, rotating with the iteration so that every
      survivor is exchanged within ⌈alive/e⌉ iterations, and ONE all_gather
      moves (values, sizes, slots) of every rank's window: D·e·(S + 2)
      elements, independent of the row count;
-  3. **global phase**: every rank collapses the D·e gathered columns
-     identically, and the ``exchange_fold`` kernel folds this rank's global
+  3. **global phase**: every rank runs the same iteration on the D·e
+     gathered columns identically, with no parent and keeping its
+     merged_into, and the ``exchange_fold`` kernel folds this rank's global
      merges into its parent shard and writes its window back.
 
 The host reads the global alive count after every iteration (it sets the
@@ -23,10 +24,15 @@ next iteration's h) and takes the reference's decisions at its program
 boundaries only: after ``HEAD_ITERS`` iterations, then after chunks of
 ``MID_CHUNK`` (or all that remain once the shard capacity is at most
 ``SMALL_LOCAL_CAP``), shrinking capacity there by ``engine.compact_sort``.
-Once the global alive count fits ``HANDOFF_CAP`` the rest of the anneal
-runs on every rank's device as one single-device session (``engine.cluster``)
-over all survivors; a one-rank mesh runs the whole anneal sharded. Roots are
-resolved on the host, as in the reference.
+Then every rank gathers the state and the parent forest and ends the
+session as a single-device one does (``engine._session``): the survivors,
+with their global slots, and the gathered forest on the rank's device run
+the tail's iterations, compact_sort, the ``finalize`` kernel and the pull.
+The tail is the rest of the anneal once the global alive count fits
+``HANDOFF_CAP``, else ``TERMINAL_ITERS`` rounds at the final threshold; a
+one-rank mesh runs the whole anneal sharded and no tail. The tail's merges
+do not depend on slot ids, so this equals the reference's separate session
+over the survivors composed into the row roots on the host.
 
 Every rank computes the same clustering: the collectives deliver the same
 data everywhere, and the kernels are deterministic.
@@ -41,24 +47,23 @@ import torch
 
 from kmerlsh_tpu_torch import kernels
 from kmerlsh_tpu_torch.cluster import engine
-from kmerlsh_tpu_torch.cluster.groups import Groups
-from kmerlsh_tpu_torch.ops import lsh
 from kmerlsh_tpu_torch.parallel.mesh import Mesh, make_mesh
 from kmerlsh_tpu_torch.parallel.multihost import gather_np
 from kmerlsh_tpu_torch.utils.timing import span
 
 EXCHANGE_CAP = 4096   # survivor summaries exchanged per rank per iteration
 
-# wall-clock split of the most recent sharded session, with the
-# single-device tail's own split folded in:
+# wall-clock split of the most recent sharded session, with the split of
+# its ending (engine._session: the tail, finalize and the pull) folded in:
 #   device_seconds, pull_seconds, pull_bytes, programs — as engine's (spans
-#     dist.transform and dist.iters, a head or chunk each; dist.pull);
+#     dist.transform and dist.iters, a head or chunk each; dist.pull, the
+#     gather to the host; the ending's programs prefixed tail_);
 #   sharded_iterations — iterations run sharded (the tail starts there);
 #   alive — the global alive count then;
 #   tail — "handoff", "terminal" or None;  gathered — elements the
 #   exchanges gathered on this rank;  exchanges — their number;
 #   planes_launches — the planes' draws on the card (the schedule's once,
-#     the tail's once)
+#     a tail of more than one survivor's once)
 LAST_SESSION: dict = {}
 
 HEAD_ITERS = 3        # iterations before the first host decision
@@ -82,11 +87,8 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
 
     # ---- local phase: hash + single-pass chain collapse on my shard, its
     #      merges folded into my parent shard ----
-    key, _ = kernels.lsh_keys(values_t, sizes, planes, h)
-    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
-    sv, ss, sl = kernels.permute_state(values_t, sizes, slots, order)
-    values_t, sizes, slots, _ = kernels.chain_collapse(
-        sv, ss, sl, skey, threshold, h, None, parent, base)
+    values_t, sizes, slots = engine._one_iteration(
+        values_t, sizes, slots, parent, planes, threshold, h, base=base)[:3]
 
     # ---- exchange: a rotating window of e alive survivors ----
     pos, w_vals, w_sizes, w_slots = kernels.exchange_window(
@@ -98,11 +100,8 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
     g_vals, g_sizes, g_slots = g[:s].view(torch.float32), g[s], g[s + 1]
 
     # ---- global phase: replicated merge of the gathered summaries ----
-    gkey, _ = kernels.lsh_keys(g_vals, g_sizes, planes, h)
-    gskey, gorder = kernels.sort_keys(gkey, lsh.KEY_BITS)
-    gv, gs, gsl = kernels.permute_state(g_vals, g_sizes, g_slots, gorder)
-    m_vals, m_sizes, m_scs, m_mi = kernels.chain_collapse(gv, gs, gsl, gskey,
-                                                          threshold, h)
+    m_vals, m_sizes, m_scs, m_mi = engine._one_iteration(
+        g_vals, g_sizes, g_slots, None, planes, threshold, h)
     kernels.exchange_fold(m_vals, m_sizes, m_mi, m_scs, w_slots, pos,
                           values_t, sizes, parent, base)
     return values_t, sizes, slots, mesh.all_sum(int((sizes > 0).sum()))
@@ -124,8 +123,8 @@ def _drive(mesh: Mesh, values_t, sizes, slots, parent, thresholds, seed: int,
            e: int, verbose: bool):
     """The host loop: the head iterations, then chunks with capacity
     shrinking, then the final compaction and the pull of every rank's shard.
-    Returns ((values_t [S, D·Cf], sizes, slots, parent [D·c0], n_alive) as
-    NumPy, the un-run rest of the schedule)."""
+    Returns ((values_t [S, D·Cf], sizes, slots, parent [D·c0]) as NumPy,
+    the un-run rest of the schedule)."""
     thr = np.asarray(thresholds, np.float32)
     total = len(thr)
     s, c0_loc = values_t.shape[0], parent.shape[0]
@@ -178,93 +177,9 @@ def _drive(mesh: Mesh, values_t, sizes, slots, parent, thresholds, seed: int,
     with span("dist.pull", LAST_SESSION, "pull_seconds"):
         pulled = (gather_np(values_t.contiguous(), mesh, dim=1),
                   gather_np(sizes, mesh), gather_np(slots, mesh),
-                  gather_np(parent, mesh), na)
-    LAST_SESSION["pull_bytes"] += sum(a.nbytes for a in pulled[:4])
+                  gather_np(parent, mesh))
+    LAST_SESSION["pull_bytes"] += sum(a.nbytes for a in pulled)
     return pulled, thr[it:]
-
-
-def _group_by_roots(roots, alive_slots, alive_sizes, alive_vals_t):
-    """(centroids [K, S], sizes [K], members) from a row → root map and the
-    alive clusters' (slot, size, centroid) columns, clusters ordered by
-    smallest member, members ascending (copy of the reference's
-    cluster/engine.py _group_by_roots)."""
-    s = alive_vals_t.shape[0]
-    if len(alive_slots) == 0:
-        return engine._empty(s)
-    order = np.argsort(roots, kind="stable")
-    sr = roots[order]
-    starts = np.flatnonzero(np.r_[True, sr[1:] != sr[:-1]])
-    uniq = sr[starts]
-    glens = np.diff(np.r_[starts, len(sr)])
-
-    gidx = np.searchsorted(uniq, alive_slots)   # every alive slot is a root
-    first_member = order[starts[gidx]]
-    cl_order = np.argsort(first_member, kind="stable")
-    gsel = gidx[cl_order]
-
-    centroids = np.ascontiguousarray(alive_vals_t[:, cl_order].T,
-                                     dtype=np.float32)
-    out_sizes = alive_sizes[cl_order].astype(np.int64)
-    lens = glens[gsel]
-    offs = np.r_[0, np.cumsum(lens)]
-    pos = np.repeat(starts[gsel] - offs[:-1], lens) + np.arange(offs[-1])
-    return centroids, out_sizes, Groups(order[pos].astype(np.int64), offs)
-
-
-def _assemble(values_t, sizes, slots, parent, n_rows: int, device,
-              extra_thresholds=None, seed: int = 0, verbose: bool = False):
-    """Root resolution and membership assembly on the host (the contract of
-    engine.cluster: clusters ordered by smallest member id).
-
-    ``extra_thresholds`` first runs a single-device session over all
-    survivors on ``device``: the handed-off rest of the anneal, or the
-    terminal rounds when survivors never fit the handoff; its groups are
-    composed into the row roots."""
-    r = parent.astype(np.int64)
-    while True:
-        nr = r[r]
-        if np.array_equal(nr, r):
-            break
-        r = nr
-    roots = r[:len(parent)]
-
-    alive = np.flatnonzero((sizes > 0) & (slots < n_rows))
-    al_slots = slots[alive].astype(np.int64)
-    al_sizes = sizes[alive]
-    al_vals = values_t[:, alive]
-
-    if extra_thresholds is None or not len(extra_thresholds) \
-            or len(alive) <= 1:
-        return _group_by_roots(roots[:n_rows], al_slots, al_sizes, al_vals)
-
-    thr = np.asarray(extra_thresholds, np.float32)
-    cents, tsizes, members = engine.cluster(
-        al_vals.T, sizes=al_sizes.astype(np.int32), thresholds=thr, seed=seed,
-        verbose=verbose, device=device)
-    for k in ("device_seconds", "pull_seconds", "pull_bytes",
-              "planes_launches"):
-        LAST_SESSION[k] += engine.LAST_SESSION[k]
-    LAST_SESSION["programs"].extend(
-        ("tail_" + t, d) for t, d in engine.LAST_SESSION["programs"])
-    if verbose:
-        print(f"[dist] single-device tail ({len(thr)} iters): "
-              f"{len(alive)} -> {len(members)} clusters")
-    # members groups alive indices; the group head (first member) slot
-    # absorbs the rest: compose the row roots through the tail's groups
-    flat, offs = members.flat, members.offsets
-    heads = flat[offs[:-1]]
-    to_head = np.empty(len(alive), np.int64)
-    to_head[flat] = np.repeat(heads, members.sizes)
-    order = np.argsort(al_slots, kind="stable")
-    sorted_slots = al_slots[order]
-    ridx = np.minimum(np.searchsorted(sorted_slots, roots[:n_rows]),
-                      len(alive) - 1)
-    is_alive_root = sorted_slots[ridx] == roots[:n_rows]
-    final_roots = np.where(is_alive_root, al_slots[to_head[order[ridx]]],
-                           roots[:n_rows])
-    return _group_by_roots(final_roots, al_slots[heads],
-                           tsizes.astype(al_sizes.dtype),
-                           np.ascontiguousarray(cents.T))
 
 
 def _tail_schedule(rest: np.ndarray, thresholds, mesh: Mesh):
@@ -287,19 +202,37 @@ def _reset_session() -> None:
 
 def _run(mesh: Mesh, values_t, sizes, n_rows: int, thresholds, seed: int,
          exchange_cap: int, verbose: bool):
-    """The session from a rank's initial shard (values [S, c], sizes [c])."""
+    """The session from a rank's initial shard (values [S, c], sizes [c]):
+    the sharded iterations, then its ending on this rank's device
+    (``engine._session``) over the survivors, in their gathered order with
+    their global slots, and the gathered forest: the tail schedule (empty
+    where there is no tail or one survivor), then finalize, which leaves
+    the rows past ``n_rows`` dead-rooted, out of every cluster."""
     c = values_t.shape[1]
     slots = torch.arange(c, dtype=torch.int32, device=values_t.device) \
         + mesh.rank * c
-    parent = slots.clone()
-    pulled, rest = _drive(mesh, values_t, sizes, slots, parent, thresholds,
-                          seed, exchange_cap, verbose)
-    extra = _tail_schedule(rest, thresholds, mesh)
-    if extra is not None:
+    (values_t, sizes, slots, parent), rest = _drive(
+        mesh, values_t, sizes, slots, slots.clone(), thresholds, seed,
+        exchange_cap, verbose)
+    tail = _tail_schedule(rest, thresholds, mesh)
+    if tail is not None:
         LAST_SESSION["tail"] = "handoff" if len(rest) else "terminal"
-    return _assemble(*pulled[:4], n_rows=n_rows, device=mesh.device,
-                     extra_thresholds=extra, seed=seed + 99_991,
-                     verbose=verbose)
+    alive = np.flatnonzero((sizes > 0) & (slots < n_rows))
+    if tail is None or len(alive) <= 1:
+        tail = np.zeros(0, np.float32)
+    out = engine._session(
+        *engine.state_from_numpy(values_t[:, alive], sizes[alive],
+                                 slots[alive], parent, mesh.device),
+        tail, seed + 99_991, verbose=verbose)
+    for k in ("device_seconds", "pull_seconds", "pull_bytes",
+              "planes_launches"):
+        LAST_SESSION[k] += engine.LAST_SESSION[k]
+    LAST_SESSION["programs"].extend(
+        ("tail_" + t, d) for t, d in engine.LAST_SESSION["programs"])
+    if verbose and len(tail):
+        print(f"[dist] single-device tail ({len(tail)} iters): "
+              f"{len(alive)} -> {len(out[1])} clusters")
+    return out
 
 
 def shard_cols(mesh: Mesh, array: np.ndarray) -> torch.Tensor:

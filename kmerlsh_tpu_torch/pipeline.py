@@ -103,7 +103,7 @@ def _fused_single_batch(
         cents, _, groups = dist.cluster_counts_sharded(
             counts, v, schedule, mesh=mesh, seed=params.seed,
             verbose=params.verbose, n=n)
-        session = dist.LAST_SESSION     # the single-device tail folded in
+        session = dist.LAST_SESSION     # its ending's split folded in
     else:
         cents, _, groups = engine.cluster_counts(
             counts, v, schedule, seed=params.seed, verbose=params.verbose,
@@ -166,9 +166,9 @@ def _cluster_fn(params: HyperParams, device, mesh=None):
 
 def _add_session(params: HyperParams, stages: Stages, mesh=None) -> None:
     """Add the most recent session's device and pull seconds and pull
-    bytes into ``stages``: the sharded session's on a mesh (its
-    single-device tail already folded in), else the engine's; nothing for
-    the host greedy engine."""
+    bytes into ``stages``: the sharded session's on a mesh (its ending's
+    split, the tail, finalize and the pull, already folded in), else the
+    engine's; nothing for the host greedy engine."""
     if params.engine == "greedy":
         return
     if mesh is not None:

@@ -322,11 +322,11 @@ def exchange_inputs(values_t, sizes, slots, merged_into, world: int,
     local-phase result (values f32 [S, c]; sizes, slots in [0, c) and
     merged_into int32 [c], tensors on one device), rank d's slots and
     merges offset by d·c: every rank's window (rotation d), gathered in
-    rank order and collapsed by the global phase (``lsh_keys``,
-    ``sort_keys``, ``permute_state``, ``chain_collapse`` at 0.9). Returns
-    the global result (values, sizes, merged_into, slots), this rank's
-    window (slots, pos), a copy of its local state (values, sizes, slots,
-    merged_into), an identity parent shard and its base:
+    rank order and collapsed by the global phase (``engine._one_iteration``
+    with no parent, at 0.9). Returns the global result (values, sizes,
+    merged_into, slots), this rank's window (slots, pos), a copy of its
+    local state (values, sizes, slots, merged_into), an identity parent
+    shard and its base:
     ``kernels.exchange_fold`` takes all but the local slots and
     merged_into, which ``chain_collapse`` folds at that base. Runs through
     the kernel wrappers where the tensors lie."""
@@ -334,7 +334,7 @@ def exchange_inputs(values_t, sizes, slots, merged_into, world: int,
 
     from kmerlsh_tpu_torch import kernels
     from kmerlsh_tpu_torch.cluster import engine
-    from kmerlsh_tpu_torch.ops import lsh, rng
+    from kmerlsh_tpu_torch.ops import rng
 
     s, c = values_t.shape
     wins, local = [], None
@@ -349,11 +349,8 @@ def exchange_inputs(values_t, sizes, slots, merged_into, world: int,
     g_slots = torch.cat([w[3] for w in wins])
     h = engine._active_h_of(int((g_sizes > 0).sum()))
     planes = rng.draw_hyperplanes(seed, 0, s).to(values_t.device)
-    key, _ = kernels.lsh_keys(g_vals, g_sizes, planes, h)
-    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
-    gv, gs, gsl = kernels.permute_state(g_vals, g_sizes, g_slots, order)
-    m_vals, m_sizes, m_scs, m_mi = kernels.chain_collapse(gv, gs, gsl, skey,
-                                                          0.9, h)
+    m_vals, m_sizes, m_scs, m_mi = engine._one_iteration(
+        g_vals, g_sizes, g_slots, None, planes, 0.9, h)
     parent = torch.arange(rank * c, (rank + 1) * c, dtype=torch.int32,
                           device=values_t.device)
     pos, w_slots = wins[rank][0], wins[rank][3]

@@ -152,6 +152,10 @@ def cases(D):
                  dict(thresholds=ANNEAL, seed=0)),
         "terminal": ("cluster_sharded", (hierarchy_rows(TERMINAL_N, seed=1),),
                      dict(thresholds=ANNEAL, seed=0, HANDOFF_CAP=1)),
+        "no_tail": ("cluster_sharded",
+                    (planted(np.random.default_rng(0), 10, 24, 16)[0],),
+                    dict(min_similarity=0.90, iterations=25, seed=3,
+                         HANDOFF_CAP=1, NO_TAIL=True)),
         "hier": ("cluster_counts_sharded", (hier, hv, HIER_THR), dict(seed=0)),
         "wrs_small": ("sharded_wrs", wrs_small, {}),
         "wrs_big": ("sharded_wrs", wrs_big, {}),
@@ -213,8 +217,24 @@ from kmerlsh_tpu_torch.parallel import dist, mesh as meshlib
 
 m = meshlib.make_mesh("cpu")
 res = {}
+# each session's gathered state and tail schedule, as its ending takes them
+ending, drive, tail_schedule = {}, dist._drive, dist._tail_schedule
+
+
+def spy_drive(*a, **kw):
+    ending["state"], rest = drive(*a, **kw)
+    return ending["state"], rest
+
+
+def spy_tail(*a, **kw):
+    ending["tail"] = None if no_tail else tail_schedule(*a, **kw)
+    return ending["tail"]
+
+
+dist._drive, dist._tail_schedule = spy_drive, spy_tail
 for name, (fn, args, kw) in pickle.load(open(inp, "rb")).items():
     kw = dict(kw)
+    no_tail = kw.pop("NO_TAIL", False)
     handoff = kw.pop("HANDOFF_CAP", None)
     saved = dist.HANDOFF_CAP
     if handoff is not None:
@@ -240,8 +260,11 @@ for name, (fn, args, kw) in pickle.load(open(inp, "rb")).items():
                           ((vt.contiguous(), 1), (sz, 0), (sl, 0), (par, 0)))
     else:
         cents, sizes, members = getattr(dist, fn)(*args, mesh=m, **kw)
+        n_rows = args[0].shape[0 if fn == "cluster_sharded" else 1]
         res[name] = (cents, sizes, members.flat, members.offsets,
-                     dict(dist.LAST_SESSION))
+                     dict(dist.LAST_SESSION),
+                     dict(ending, n_rows=n_rows, seed=kw.get("seed", 0))
+                     if rank == 0 else None)
     dist.HANDOFF_CAP = saved
 pickle.dump(res, open(out, "wb"))
 tdist.destroy_process_group()
@@ -540,6 +563,40 @@ def test_separated_data_same_partition_as_jax(ranks_and_jax):
     assert all(np.array_equal(a, b) for a, b in zip(groups_of(r), jm))
     assert np.array_equal(r[1], js)
     np.testing.assert_allclose(r[0], jc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,tail", [
+    ("no_tail", None), ("cross_shard", "one survivor"),
+    ("planted", "handoff"), ("counts", "handoff"), ("terminal", "terminal")])
+def test_sharded_ending_equals_the_host_assembly(ranks, name, tail,
+                                                 monkeypatch):
+    """Each ending of a sharded session (the whole anneal sharded and no
+    tail; a handoff left with one survivor, which runs no tail; the
+    handoff; the terminal rounds) gives, byte for byte and in the same
+    types, what the host assembly gives on the same gathered state and
+    tail schedule: the reference's dist._assemble, whose single-device
+    tail is the port's engine.cluster over the survivors, composed into
+    the row roots and grouped on the host."""
+    D, res = ranks
+    got = res[0][name]
+    end = got[5]
+    values_t, sizes, slots, parent = end["state"]
+    alive = int(((sizes > 0) & (slots < end["n_rows"])).sum())
+    if tail is None:
+        assert end["tail"] is None and got[4]["tail"] is None
+    elif tail == "one survivor":
+        assert len(end["tail"]) and alive == 1
+    else:
+        assert got[4]["tail"] == tail and alive > 1
+    monkeypatch.setattr(jengine, "cluster", lambda v, **kw: engine.cluster(
+        v, device="cpu", **kw))
+    monkeypatch.setattr(jdist, "LAST_SESSION", {})
+    cents, csizes, members = jdist._assemble(
+        values_t, sizes, slots, parent, end["n_rows"],
+        extra_thresholds=end["tail"], seed=end["seed"] + 99_991)
+    for a, b in zip(got[:4], (cents, csizes, members.flat, members.offsets)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert len(csizes) > 1 or name == "cross_shard"
 
 
 def test_sharded_matches_single_device_partition(ranks):

@@ -2,6 +2,7 @@
 sort) on identical inputs: chain collapse, compaction, finalize."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -218,6 +219,21 @@ def test_stride_cut_matches_jax():
     np.testing.assert_allclose(v2.numpy(), np.asarray(jv), rtol=1e-6)
 
 
+@pytest.mark.parametrize("keep", [[3, 1, 7, 20], [3]])
+def test_state_from_numpy_is_contiguous(keep):
+    """A column selection of a state, as the sharded ending takes its
+    survivors (one of them too), reaches the engine with a last stride of
+    1, which the card's kernels check: numpy's selection of one column is
+    C-contiguous with a stride of a row."""
+    r = np.random.default_rng(0)
+    vt = r.normal(size=(5, 40)).astype(np.float32)
+    keep = np.array(keep)
+    state = engine.state_from_numpy(vt[:, keep], np.ones(len(keep)), keep,
+                                    np.arange(40), "cpu")
+    assert all(t.is_contiguous() and t.stride(-1) == 1 for t in state)
+    assert np.array_equal(state[0].numpy(), vt[:, keep])
+
+
 def test_one_iteration_folds_parent_like_the_reference():
     """engine._one_iteration (keys from the port's own projection) on the
     JAX head state: a valid forest step — every slot kept or pointing at an
@@ -228,7 +244,7 @@ def test_one_iteration_folds_parent_like_the_reference():
     before = tparent.clone()
     planes = np.array(jlsh.draw_hyperplanes(jax.random.fold_in(base, 1),
                                             vt.shape[0]))
-    v2, s2, sl2 = engine._one_iteration(
+    v2, s2, sl2, _ = engine._one_iteration(
         tv, ts, tslots, tparent, T(planes), 0.9, engine._active_h(ts))
     assert int(s2.sum()) == int(ts.sum())
     changed = (tparent != before).nonzero().flatten()

@@ -255,7 +255,7 @@ def test_finalize_exact(dev):
     parent = sl.clone()
     for it in range(6):
         na = int((sz > 0).sum())
-        vt, sz, sl = engine._one_iteration(
+        vt, sz, sl, _ = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(2, it, S).to(dev),
             0.95 - 0.02 * it, engine._active_h_of(na))
     vt, sz, sl = engine.compact_sort(vt, sz, sl)
@@ -292,7 +292,7 @@ def test_finalize_exact_after_a_session(dev):
     parent = sl.clone()
     for it in range(testdata.FOREST_ROUNDS):
         na = int((sz > 0).sum())
-        vt, sz, sl = engine._one_iteration(
+        vt, sz, sl, _ = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(4, it, S).to(dev),
             0.95 - 0.0075 * it, engine._active_h_of(na))
     vt, sz, sl = engine.compact_sort(vt, sz, sl)

@@ -132,7 +132,7 @@ def measure(M: int) -> None:
     for it in range(6):
         vt, sz, sl = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(dev),
-            0.95 - 0.01 * it, engine._active_h_of(int((sz > 0).sum())))
+            0.95 - 0.01 * it, engine._active_h_of(int((sz > 0).sum())))[:3]
     vt, sz, sl = engine.compact_sort(vt, sz, sl)
     na = int((sz > 0).sum())
     args = (vt[:, :na].contiguous(), sz[:na], sl[:na], parent)

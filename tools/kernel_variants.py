@@ -719,7 +719,7 @@ def inputs(M: int, lib: ctypes.CDLL):
     for it in range(6):
         vt, sz, sl = engine._one_iteration(
             vt, sz, sl, parent, rng.draw_hyperplanes(0, it, S).to(dev),
-            0.95 - 0.01 * it, engine._active_h_of(int((sz > 0).sum())))
+            0.95 - 0.01 * it, engine._active_h_of(int((sz > 0).sum())))[:3]
     vt, sz, sl = engine.compact_sort(vt, sz, sl)
     na = int((sz > 0).sum())
     return keys_in, (vt[:, :na].contiguous(), sz[:na], sl[:na], parent)
@@ -1165,7 +1165,7 @@ def sort_inputs() -> list:
                 vt, sz, sl = engine._one_iteration(
                     vt, sz, sl, parent, rng.draw_hyperplanes(0, it, cs.S)
                     .to(cs.DEV), 0.95 - 0.01 * it,
-                    engine._active_h_of(int((sz > 0).sum())))
+                    engine._active_h_of(int((sz > 0).sum())))[:3]
             bits = M.bit_length()
             cases.append((f"finalize's row keys at {M}",
                           cs.root_keys(sz, sl, parent), bits))
