@@ -58,7 +58,10 @@ Phases:
      passes it in a session of 2^24 x 124 annealed over 101 iterations
      (~1.2 M clusters), exact against its plain version, timed, and the
      pulled triple checked to hold the plain outputs' bytes; then
-     draw_planes, a session's hyperplanes in one launch, bit for bit its
+     chain_collapse there too, at the launch plan of the cell's width: a
+     session's first iteration at 2^24 x 124, exact against K2's and K3's
+     plain versions (centroids within rtol 1e-5) and timed beside their
+     functions' bound; then draw_planes, a session's hyperplanes in one launch, bit for bit its
      plain twin at the benchmark cell's 101 x 124 x 31 (seeds 0,
      2100000013, 2^32 - 1) and at 101 x 20 x 31, its device function on
      all 2^23 mantissas the uniform takes, and its time beside the twin's
@@ -623,6 +626,58 @@ def phase_finalize_cell() -> None:
         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
 
 
+def phase_chain_cell() -> None:
+    """chain_collapse where the benchmark's metahit124.cluster cell runs it,
+    at the launch plan of the cell's width: a session's first iteration at
+    2^24 x 124 (testdata.session_input, seed 11; the alive count's h,
+    iteration 0's planes, the cell's first threshold, the parent fold).
+    Held to K2's plain version followed by the plain collapse: sizes,
+    slots, merged_into and parent exact, centroids within rtol 1e-5; both
+    timed, beside the bound of K2's and K3's functions (8 S M + 20 M and
+    8 S M + 24 M + 4 a dying slot bytes)."""
+    counts, v = testdata.session_input(FULL, CELL_S, 11, DEV)
+    vt, sz = kernels.abundance_transform(counts, torch.from_numpy(v).to(DEV))
+    del counts
+    h = engine._active_h_of(int((sz > 0).sum()))
+    key, _ = kernels.lsh_keys(
+        vt, sz, rng.draw_hyperplanes(11, 0, CELL_S).to(DEV), h)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
+    del key
+    sl = torch.arange(FULL, dtype=torch.int32, device=DEV)
+    thr = float(CELL_THR[0])
+    pk, pp = sl.clone(), sl.clone()
+    # the plain pair first, its temporaries gone before the kernel's
+    # outputs are made; the centroids compared a sample at a time (the
+    # device's memory holds ~63 GiB at the plain pair's peak)
+    p = kernels.chain_collapse_plain(
+        *kernels.permute_state_plain(vt, sz, sl, order), skey, thr, h, None,
+        pp)
+    k = kernels.chain_collapse(vt, sz, sl, order, skey, thr, h, None, pk)
+    _exact(f"chain_collapse at {FULL} x {CELL_S}",
+           [(k[1], p[1]), (k[2], p[2]), (k[3], p[3]), (pk, pp)])
+    dying = int((k[3] >= 0).sum())
+    if dying == 0:
+        raise AssertionError(f"chain_collapse at {FULL} x {CELL_S}: no chain "
+                             f"merged at {thr}")
+    for a, b in zip(k[0], p[0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    err = _max_err(zip(k[0], p[0]))
+    del k, p
+    # the fold writes the same parent entries again: timed in place
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: kernels.chain_collapse(
+                   vt, sz, sl, order, skey, thr, h, None, pk), 5, 4),
+               plain_ms=cuda_ms(lambda: kernels.chain_collapse_plain(
+                   *kernels.permute_state_plain(vt, sz, sl, order), skey,
+                   thr, h, None, pp), 3, 1),
+               library_ms=None,
+               **bound(16 * CELL_S * FULL + 44 * FULL + 4 * dying,
+                       6 * CELL_S * FULL))
+    log(f"chain_collapse at the cell ({FULL} x {CELL_S}, h = {h}, {dying} "
+        f"slots die at {thr}): exact against K2's and K3's plain versions")
+    log_kernels({"chain_collapse": res}, f"{FULL} x {CELL_S}")
+
+
 def _same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
     same = got.cpu().contiguous().view(torch.int32) == \
         want.contiguous().view(torch.int32)
@@ -685,10 +740,10 @@ def phase_planes() -> dict:
     return {"draw_planes": res}
 
 
-def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
+def phase_kernels_exchange(state, local, merged: int, h: int) -> dict:
     """The exchange kernels on an M x 20 local-phase result (``local``:
-    values, sizes, slots, merged_into of ``sorted_state``, the sorted state
-    and keys, collapsed at 0.95): the rotating window of e = 4096
+    values, sizes, slots, merged_into of ``state``, the input state with its
+    order and sorted keys, collapsed at 0.95): the rotating window of e = 4096
     survivors, then rank 1's fold after a global phase over four ranks'
     windows (testdata.exchange_inputs), its local merges folded by
     chain_collapse with its parent shard and base as the sharded iteration
@@ -697,7 +752,7 @@ def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
     K8b (a parent tree's: tools/kernel_split.py exchange)."""
     res = {}
     values, sizes, slots, mi = local
-    sv, ss, sl, skey = sorted_state
+    iv, isz, isl, order, skey = state
     c, e = values.shape[1], dist.EXCHANGE_CAP
     k = kernels.exchange_window(values, sizes, slots, e, 1)
     p = kernels.exchange_window_plain(values, sizes, slots, e, 1)
@@ -718,11 +773,13 @@ def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
     if g_merged == 0:
         raise AssertionError("exchange_fold: the global phase merged nothing")
     # rank 1's local phase: its merges folded into its parent shard
-    slb = sl + base
+    slb = isl + base
     kp, pp = parent0.clone(), parent0.clone()
-    k = kernels.chain_collapse(sv, ss, slb, skey, 0.95, h, None, kp, base)
-    p = kernels.chain_collapse_plain(sv, ss, slb, skey, 0.95, h, None, pp,
-                                     base)
+    k = kernels.chain_collapse(iv, isz, slb, order, skey, 0.95, h, None, kp,
+                               base)
+    p = kernels.chain_collapse_plain(
+        *kernels.permute_state_plain(iv, isz, slb, order), skey, 0.95, h,
+        None, pp, base)
     _exact("chain_collapse at a base", [(k[1], p[1]), (k[2], p[2]),
                                         (k[3], p[3]), (kp, pp)])
     _exact("chain_collapse at a base against the exchange's local state",
@@ -747,11 +804,11 @@ def phase_kernels_exchange(sorted_state, local, merged: int, h: int) -> dict:
                   4 * n + 8 * e + n_valid * (8 * S + 12) + 4 * folds))
     # K3 at the rank's base, the fold timed in place (it writes the same
     # entries again), and without it; its bytes as phase 3's chain_collapse
-    streamed = 8 * S * c + 28 * c
+    streamed = 16 * S * c + 48 * c
     with_fold = cuda_ms(lambda: kernels.chain_collapse(
-        sv, ss, slb, skey, 0.95, h, None, folded, base))
-    bare = cuda_ms(lambda: kernels.chain_collapse(sv, ss, slb, skey, 0.95,
-                                                  h))
+        iv, isz, slb, order, skey, 0.95, h, None, folded, base))
+    bare = cuda_ms(lambda: kernels.chain_collapse(iv, isz, slb, order, skey,
+                                                  0.95, h))
     fold_ms = res["exchange_fold"]["ms"]
     log(f"exchange at {c}: window of {e} of {int((sizes > 0).sum())} alive "
         f"columns; the global phase over {n} gathered columns merged "
@@ -830,9 +887,12 @@ def phase_kernels(M: int = SMALL, exchange: bool = True,
         if M == SMALL:
             pairing_wide()
 
+    # K3 moves the state into sort order itself (K2's transpose, rows
+    # staged by the order): held to the plain collapse of K2's sorted copy
     parent0 = torch.arange(M, dtype=torch.int32, device=DEV)
     pk, pp = parent0.clone(), parent0.clone()
-    k = kernels.chain_collapse(svals, ssizes, sslots, skey, 0.95, h, None, pk)
+    k = kernels.chain_collapse(values, sizes, slots, order, skey, 0.95, h,
+                               None, pk)
     p = kernels.chain_collapse_plain(svals, ssizes, sslots, skey, 0.95, h,
                                      None, pp)
     _exact("chain_collapse", [(k[1], p[1]), (k[2], p[2]), (k[3], p[3]),
@@ -841,28 +901,31 @@ def phase_kernels(M: int = SMALL, exchange: bool = True,
     if merged == 0:
         raise AssertionError("chain_collapse: no chain merged at 0.95")
     torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=0)
-    # sorted state and keys in; state, merged_into and one parent entry per
-    # merge out; three products (dot and two norms) per value at the least
+    # the functions of K2 and K3 together: state, order and keys in, the
+    # moved state out and in again; state, merged_into and one parent entry
+    # per merge out; three products (dot and two norms) per value at the
+    # least
     res["chain_collapse"] = dict(
         max_abs_err=_max_err([(k[0], p[0])]),
         **timings(lambda: kernels.chain_collapse(
-                      svals, ssizes, sslots, skey, 0.95, h, None,
+                      values, sizes, slots, order, skey, 0.95, h, None,
                       parent0.clone()),
                   lambda: kernels.chain_collapse_plain(
-                      svals, ssizes, sslots, skey, 0.95, h, None,
-                      parent0.clone()),
-                  8 * S * M + 28 * M + 4 * merged, 6 * S * M))
+                      *kernels.permute_state_plain(values, sizes, slots,
+                                                   order),
+                      skey, 0.95, h, None, parent0.clone()),
+                  16 * S * M + 48 * M + 4 * merged, 6 * S * M))
     log(f"chain_collapse: {merged} of {n_alive} columns merged at 0.95")
     # as the global phase calls it, without the parent fold; and a copy of
     # the bytes it streams (values and three int columns in and out)
-    bare = cuda_ms(lambda: kernels.chain_collapse(svals, ssizes, sslots, skey,
-                                                  0.95, h))
+    bare = cuda_ms(lambda: kernels.chain_collapse(values, sizes, slots, order,
+                                                  skey, 0.95, h))
     copy = cuda_ms(lambda: [t.clone() for t in (svals, ssizes, sslots, skey)])
     log(f"chain_collapse at {M}: without the parent fold {bare:.4f} ms; a "
         f"copy of its values and int columns {copy:.4f} ms")
     if exchange:
-        res.update(phase_kernels_exchange((svals, ssizes, sslots, skey), k,
-                                          merged, h))
+        res.update(phase_kernels_exchange((values, sizes, slots, order, skey),
+                                          k, merged, h))
 
     # a session's final state: a few more iterations through the kernels
     vt, sz, sl, parent = k[0], k[1], k[2], pk
@@ -2243,6 +2306,7 @@ def main() -> None:
                                # capacity; logged only
     phase_kernels(FULL, exchange=False)        # logged only
     phase_finalize_cell()                      # logged only
+    phase_chain_cell()                         # logged only
     res.update(phase_planes())
     ended("3")
     with tempfile.TemporaryDirectory() as tmp:

@@ -7,14 +7,15 @@ rows (int32 [cap0]). Each iteration, run eagerly one at a time:
 
   1. ``lsh_keys`` kernel: projections on the iteration's hyperplanes, the h
      bucket bits and the secondary projection quantized into one int32 key;
-  2. the ``sort_keys`` kernel's stable sort of the key, and the
-     ``permute_state`` kernel moving the state into sorted order;
-  3. ``chain_collapse`` kernel: neighbour chains collapse onto their last
-     position; the dying slots are folded into the parent forest in place.
-     With ``merge="pairing"`` the ``pairing_rounds`` kernel runs R rounds
-     of adjacent rank pairs within each bucket instead (the reference keeps
-     it for comparison); with ``deep_init`` the first iteration is still a
-     chain collapse.
+  2. the ``sort_keys`` kernel's stable sort of the key;
+  3. ``chain_collapse`` kernel: the state moves into sorted order (K2's
+     transpose, then rows staged by the order) and neighbour chains
+     collapse onto their last position; the dying slots are folded into
+     the parent forest in place. With ``merge="pairing"`` the
+     ``permute_state`` kernel moves the state into sorted order and the
+     ``pairing_rounds`` kernel runs R rounds of adjacent rank pairs within
+     each bucket instead (the reference keeps it for comparison); with
+     ``deep_init`` the first iteration is still a chain collapse.
 
 After every iteration the host reads one int, the alive count: the sort put
 every dead column behind the alive ones, so the next iteration runs on the
@@ -63,6 +64,11 @@ from kmerlsh_tpu_torch.utils.timing import span
 #   clusters       — the session's cluster count
 #   planes_launches — the session's draws of its planes on the card (1 on a
 #                    card without a hyperplanes hook, else 0)
+#   permute_launches — the session's calls of kernels.permute_state (on the
+#                    CPU too): compact_sort's one and one a pairing
+#                    iteration (a chain iteration moves its state inside
+#                    kernels.chain_collapse); calls outside a session, as
+#                    pairing_merge's, are in no session's count
 LAST_SESSION: dict = {}
 
 Hyperplanes = Callable[[int], "np.ndarray | torch.Tensor"]
@@ -91,11 +97,21 @@ def chain_collapse(values_t, sizes, keys, proj, threshold: float,
         cur_slot = torch.arange(m, dtype=torch.int32, device=values_t.device)
     combined = lsh.combined_sort_key(keys, proj, sizes, h)
     skey, order = kernels.sort_keys(combined, lsh.KEY_BITS)
-    svt, ssize, scs = kernels.permute_state(values_t, sizes, cur_slot, order)
-    smi = None if merged_into is None else merged_into[order]
     new_vt, new_size, new_scs, new_mi = kernels.chain_collapse(
-        svt, ssize, scs, skey, threshold, h, smi, parent)
+        values_t, sizes, cur_slot, order, skey, threshold, h, merged_into,
+        parent)
     return new_vt, new_size, new_mi, new_scs
+
+
+_permutes = 0   # calls of _permute in this process
+
+
+def _permute(values_t, sizes, slots, order):
+    """``kernels.permute_state``, counted in ``_permutes`` (a session
+    records its delta as LAST_SESSION["permute_launches"])."""
+    global _permutes
+    _permutes += 1
+    return kernels.permute_state(values_t, sizes, slots, order)
 
 
 def _float_order(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +164,7 @@ def pairing_merge(values_t, sizes, keys, proj, threshold: float,
         combined = lsh.combined_sort_key(keys, proj, sizes, h)
         skey, order = kernels.sort_keys(combined, lsh.KEY_BITS)
         shift = kernels.free_bits(h)
-    svt, ssize, scs = kernels.permute_state(values_t, sizes, cur_slot, order)
+    svt, ssize, scs = _permute(values_t, sizes, cur_slot, order)
     smi = None if merged_into is None else merged_into[order]
     svt, ssize, smi = kernels.pairing_rounds(
         svt, ssize, scs, skey, shift, threshold, rounds, smi,
@@ -157,28 +173,31 @@ def pairing_merge(values_t, sizes, keys, proj, threshold: float,
         return svt, ssize, smi, scs
     inv = torch.empty_like(order)
     inv[order.long()] = torch.arange(m, dtype=torch.int32, device=dev)
-    return kernels.permute_state(svt, ssize, smi, inv)
+    return _permute(svt, ssize, smi, inv)
 
 
 def _one_iteration(values_t, sizes, slots, parent, hyperplanes, threshold,
                    h: int, merge: str = "chain", rounds: int = 4,
-                   base: int = 0):
+                   base: int = 0, merged: bool = True):
     """One LSH iteration: (values_t, sizes, slots, merged_into) in sorted
     order, ``merged_into`` the slot that absorbed a position (-1 where none
     did), with the merges folded into ``parent`` (the entry of slot s at
     s - ``base``; None folds nothing) in place. ``merge`` picks the
     within-bucket primitive: ``"chain"`` (one neighbour-chain collapse) or
-    ``"pairing"`` (``rounds`` adjacent rank-pair rounds)."""
+    ``"pairing"`` (``rounds`` adjacent rank-pair rounds). With ``merged``
+    False merged_into comes back None: a chain iteration allocates none, a
+    pairing one drops its own."""
     key, _ = kernels.lsh_keys(values_t, sizes, hyperplanes, h)
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
-    svt, ssize, sslots = kernels.permute_state(values_t, sizes, slots, order)
+    del key   # not held into the collapse's peak
     if merge == "pairing":
+        svt, ssize, sslots = _permute(values_t, sizes, slots, order)
         svt, ssize, smi = kernels.pairing_rounds(
             svt, ssize, sslots, skey, kernels.free_bits(h), threshold,
             rounds, None, parent, base)
-        return svt, ssize, sslots, smi
-    return kernels.chain_collapse(svt, ssize, sslots, skey, threshold, h,
-                                  None, parent, base)
+        return svt, ssize, sslots, smi if merged else None
+    return kernels.chain_collapse(values_t, sizes, slots, order, skey,
+                                  threshold, h, None, parent, base, merged)
 
 
 def compact_sort(values_t, sizes, slots):
@@ -186,7 +205,7 @@ def compact_sort(values_t, sizes, slots):
     the same permute as an iteration."""
     dead = (sizes == 0).to(torch.int32)
     order = kernels.sort_keys(dead, 1)[1]
-    return kernels.permute_state(values_t, sizes, slots, order)
+    return _permute(values_t, sizes, slots, order)
 
 
 def _finalize_grouped(values_t, sizes, slots, parent):
@@ -248,6 +267,7 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
     first, a chain collapse (the reference's deep init pass)."""
     if merge not in ("chain", "pairing"):
         raise ValueError(f"merge = {merge!r}: chain or pairing")
+    permutes0 = _permutes
     na = int((sizes > 0).sum())
     for it, threshold in enumerate(thr):
         if na == 0:
@@ -260,11 +280,11 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
             with span("iter.planes"):
                 p = planes(it)
             with span("iter.enqueue"):
-                # [:3]: merged_into is dropped here, not held into the
+                # merged_into is not needed here, and not held into the
                 # next iteration's peak
-                values_t, sizes, slots = _one_iteration(
+                values_t, sizes, slots, _ = _one_iteration(
                     values_t, sizes, slots, parent, p, float(threshold), h,
-                    kind, rounds)[:3]
+                    kind, rounds, merged=False)
             with span("iter.wait"):                # the one read per iteration
                 na_next = int((sizes > 0).sum())
         _record(f"iter[{it}]@{cap}", sp.seconds)
@@ -283,6 +303,7 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
             sync()
     _record(f"finalize@{na}", sp.seconds)
     LAST_SESSION["clusters"] = na
+    LAST_SESSION["permute_launches"] = _permutes - permutes0
     if defer_pull:
         return _deferred(out)
     return _pull(*out, LAST_SESSION)
@@ -372,7 +393,8 @@ def _sync_for(device: torch.device):
 def _reset_session() -> None:
     LAST_SESSION.clear()
     LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
-                        pull_host_allocs=0, planes_launches=0, programs=[])
+                        pull_host_allocs=0, planes_launches=0,
+                        permute_launches=0, programs=[])
 
 
 def upload_counts(counts: np.ndarray, device) -> tuple[torch.Tensor, int]:

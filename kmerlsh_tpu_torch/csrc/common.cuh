@@ -38,6 +38,24 @@ __device__ __forceinline__ void kl_cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// K2's launch (a) alone (csrc/permute_state.cu): the state into the
+// profile-major scratch [M, W], each column's S values, size and slot in a
+// row of W words, for the gathers that read whole rows of it by a sort
+// order (K3's staging, finalize's columns). KL_MOVE_THREADS threads a block;
+// W, C (columns a block) and smem are kernels.permute_plan's, which
+// kl_move_plan_ok checks.
+#define KL_MOVE_THREADS 256
+
+int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
+                          long long M, const void* sizes_in,
+                          const void* slots_in, int W, int C, int smem,
+                          void* scratch, cudaStream_t st);
+
+static inline bool kl_move_plan_ok(int S, int W, int C, int smem) {
+  return W >= S + 2 && W % 8 == 0 && C >= 32 && KL_MOVE_THREADS % C == 0 &&
+         smem == 4 * C + 4 * C * (W + 4);
+}
+
 // Rows ord[c] of the row-major scratch scr ([*, W] words, W a multiple of 4)
 // into a shared tile of n rows of W + 4 words (16-byte aligned, W + 4 = 4
 // mod 8 keeps the 16-byte reads of eight neighbouring rows on distinct

@@ -55,12 +55,6 @@
 #define KL_FIN_CHUNK 1024   // clusters of one block of the offset scan
 #define KL_FIN_MOVE_THREADS 256   // threads of a kl_fin_gather block
 
-// csrc/permute_state.cu: K2's transpose launch alone, into scratch [M, W]
-int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
-                          long long M, const void* sizes_in,
-                          const void* slots_in, int W, int C, int smem,
-                          void* scratch, cudaStream_t st);
-
 __global__ void kl_fin_mark(long long fc, const int* __restrict__ sizes,
                             const int* __restrict__ slots,
                             int* __restrict__ link) {

@@ -33,8 +33,6 @@
 
 #include "common.cuh"
 
-#define KL_MOVE_THREADS 256
-
 __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_transpose(
     const unsigned* __restrict__ vin, long long ld_in, int S, long long M,
     const unsigned* __restrict__ sizes, const unsigned* __restrict__ slots,
@@ -98,9 +96,11 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
   }
 }
 
-// Launch (a) alone: the state into the scratch [M, W], for finalize's
-// column move (csrc/finalize.cu kl_finalize_columns), which gathers whole
-// rows out of it. W, C and smem are permute_plan's, as for kl_permute_state.
+// Launch (a) alone: the state into the scratch [M, W], for the chain
+// collapse (csrc/chain_collapse.cu), which stages whole rows of it by the
+// sort order, and finalize's column move (csrc/finalize.cu
+// kl_finalize_columns). W, C and smem are permute_plan's, as for
+// kl_permute_state.
 int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
                           long long M, const void* sizes_in,
                           const void* slots_in, int W, int C, int smem,
@@ -121,9 +121,7 @@ KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
                                int W, int C, int smem, void* scratch,
                                void* vout, void* sizes_out, void* slots_out,
                                void* stream) {
-  if (W < S + 2 || W % 8 != 0 || C < 32 || KL_MOVE_THREADS % C != 0 ||
-      smem != 4 * C + 4 * C * (W + 4))
-    return (int)cudaErrorInvalidValue;
+  if (!kl_move_plan_ok(S, W, C, smem)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
       kl_permute_gather, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -17,7 +17,8 @@ main path went through the kernels.
 | permute_state        | csrc/permute_state.cu  | engine.py _sort_state / compact_sort      |
 |                      |                        | payloads                                  |
 | chain_collapse       | csrc/chain_collapse.cu | engine.py chain_collapse + parent fold    |
-|                      |                        | (and parallel/dist.py's local fold)       |
+|                      | (+ permute_state.cu's  | (and parallel/dist.py's local fold), with |
+|                      | transpose)             | the payload move of its sort              |
 | finalize             | csrc/finalize.cu       | engine.py _finalize_grouped               |
 | wrs_verdicts         | csrc/ttest.cu          | ops/ttest.py t_cdf, studentttest2,        |
 |                      |                        | wrs_verdicts                              |
@@ -44,6 +45,8 @@ from kmerlsh_tpu_torch.ops.segment import alive_rank_in_segment, segment_starts
 MAX_CHAIN_LOG = 15   # chains are cut at positions that are multiples of 2^15
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 STAGE_BYTES = 48 * 1024   # the tile a block of K2 or K3 stages, at most
+CHAIN_THREADS = 128       # threads of a K3 block, at least (a thread a
+                          # position where a block has more positions)
 LSH_PLANES = (4, 8, 12, 16, 20, 24, 28, 30)   # K1b's sign-plane counts
 LSH_RING = 8              # value rows a K1b block keeps in flight
 WRS_WARPS = 4             # warps a K6 block
@@ -407,24 +410,33 @@ def _rev_fill(last, scs, m: int):
 
 def chain_plan(S: int, M: int) -> dict:
     """Launch arithmetic of ``chain_collapse`` at S rows and M positions:
-    ``blocks`` blocks of P threads, one per sub-range of P positions, P the
-    largest power of two in [32, 512] whose S x P value tile stays within
-    STAGE_BYTES (P divides 2^15, so no sub-range crosses the stride cut;
-    the carries between sub-ranges go by look-back, so there is no
-    cluster). ``smem`` follows the kernel's
-    layout (csrc/chain_collapse.cu ``kl_chain_words``): the tile with a halo
-    column on each side and odd rows, sizes, keys, slots, links, sizes as
-    floats, the warps' totals, the carry's value sums and 4 ints."""
+    ``W``, the words of a scratch row (``permute_plan``'s: the S values,
+    the size and the slot in whole 32-byte sectors), staged into a row of
+    ``row`` = W + 4 words (16-byte aligned, an odd number of 16-byte
+    pieces: the 16-byte reads of eight neighbouring rows miss no bank);
+    ``blocks`` blocks, one per sub-range of P positions, P the largest
+    power of two in [32, 512] whose P + 2 staged rows (a halo position on
+    each side) stay within STAGE_BYTES (P divides 2^15, so no sub-range
+    crosses the stride cut; the carries between sub-ranges go by
+    look-back, so there is no cluster); ``threads`` = max(P,
+    CHAIN_THREADS) a block. ``smem`` follows the kernel's layout
+    (csrc/chain_collapse.cu ``kl_chain_words``): the row tile, keys,
+    links, sizes as floats, the warp-local size sums, the warps' value
+    totals (first the staged rows' sources), their size totals, latest
+    heads and masks, the carry's value sums and 8 ints."""
+    W = permute_plan(S, M)["W"]
+    row = W + 4
     P = 512
-    while P > 32 and 4 * P * S > STAGE_BYTES:
+    while P > 32 and 4 * (P + 2) * row > STAGE_BYTES:
         P //= 2
     nw = P // 32
-    words = (S * (P + 3) + 2 * (P + 2) + P + (P + 1) + P + S * nw + 2 * nw
-             + S + 4)
+    words = ((P + 2) * row + (P + 2) + (P + 1) + 2 * P
+             + max(S * nw, P + 2) + 4 * nw + S + 8)
     if 4 * words > SMEM_LIMIT:
         raise ValueError(f"chain_collapse: S = {S} rows need {4 * words} "
                          f"bytes of shared memory, more than {SMEM_LIMIT}")
-    return dict(P=P, blocks=-(-M // P), smem=4 * words)
+    return dict(W=W, row=row, P=P, threads=max(P, CHAIN_THREADS),
+                blocks=-(-M // P), smem=4 * words)
 
 
 def chain_collapse_plain(svals, ssizes, sslots, skey, threshold: float,
@@ -464,47 +476,59 @@ def chain_collapse_plain(svals, ssizes, sslots, skey, threshold: float,
     return new_vt, new_size, new_scs, new_mi
 
 
-def chain_collapse(svals: torch.Tensor, ssizes: torch.Tensor,
-                   sslots: torch.Tensor, skey: torch.Tensor,
-                   threshold: float, h: int,
+def chain_collapse(values_t: torch.Tensor, sizes: torch.Tensor,
+                   slots: torch.Tensor, order: torch.Tensor,
+                   skey: torch.Tensor, threshold: float, h: int,
                    smi: torch.Tensor | None = None,
-                   parent: torch.Tensor | None = None, base: int = 0):
-    """Collapse every chain of the sorted state (values f32 [S, M]
-    contiguous; sizes, slots, combined keys int32 [M]; optional
-    merged_into int32 [M]). Returns (values, sizes, slots, merged_into) in
-    the same positions; when ``parent`` (int32, the entry of slot s at
-    s − ``base``) is given, each dying slot's parent is set to its chain
-    head's slot in place. Every dying slot must lie in [base, base +
-    len(parent)): a rank's parent shard holds all of its slots."""
-    if not _on_cuda(svals, ssizes, sslots, skey, smi, parent):
-        return chain_collapse_plain(svals, ssizes, sslots, skey, threshold,
-                                    h, smi, parent, base)
-    _check(svals, torch.float32, "svals", 2)
-    if not svals.is_contiguous():
-        raise ValueError("svals must be contiguous")
-    for name, t in (("ssizes", ssizes), ("sslots", sslots), ("skey", skey),
-                    ("smi", smi), ("parent", parent)):
+                   parent: torch.Tensor | None = None, base: int = 0,
+                   merged: bool = True):
+    """Move the state into the sort order and collapse every chain: the
+    state as an iteration holds it (values f32 [S, M], rows may be
+    strided; sizes, slots int32 [M]; optional merged_into int32 [M]), K9's
+    int32 ``order`` and the sorted combined keys ``skey``. Returns
+    (values, sizes, slots, merged_into) in sorted position order, as
+    ``permute_state`` then the collapse of the sorted state
+    (``chain_collapse_plain``) give them; when ``parent`` (int32, the
+    entry of slot s at s − ``base``) is given, each dying slot's parent is
+    set to its chain head's slot in place. Every dying slot must lie in
+    [base, base + len(parent)): a rank's parent shard holds all of its
+    slots. With ``merged`` False, merged_into is None (none is made). On
+    a card, two launches: K2's transpose into a profile-major scratch,
+    then the collapse, which stages its positions' scratch rows by the
+    order; no sorted copy of the state is made."""
+    if not _on_cuda(values_t, sizes, slots, order, skey, smi, parent):
+        sv, ss, sl = permute_state_plain(values_t, sizes, slots, order)
+        out = chain_collapse_plain(sv, ss, sl, skey, threshold, h,
+                                   None if smi is None else smi[order],
+                                   parent, base)
+        return (*out[:3], out[3] if merged else None)
+    _check(values_t, torch.float32, "values_t", 2)
+    for name, t in (("sizes", sizes), ("slots", slots), ("order", order),
+                    ("skey", skey), ("smi", smi), ("parent", parent)):
         if t is not None:
             _check(t, torch.int32, name)
-    S, M = svals.shape
-    out_v = torch.empty_like(svals)
-    out_size = torch.empty_like(ssizes)
-    out_slot = torch.empty_like(sslots)
-    out_mi = torch.empty_like(sslots)
+    S, M = values_t.shape
+    dev = values_t.device
+    out_v = torch.empty((S, M), dtype=torch.float32, device=dev)
+    out_size = torch.empty_like(sizes)
+    out_slot = torch.empty_like(slots)
+    out_mi = torch.empty_like(slots) if merged else None
     if M:
-        plan = chain_plan(S, M)
+        plan, move = chain_plan(S, M), permute_plan(S, M)
         nsub = plan["blocks"]
+        scratch = torch.empty((M, plan["W"]), dtype=torch.int32, device=dev)
         # per sub-range: a published flag (zeroed), then the block counter;
         # its aggregate: head position, head slot, size sum, S value sums
-        status = torch.zeros(nsub + 1, dtype=torch.int32, device=svals.device)
-        agg = torch.empty(nsub * (3 + S), dtype=torch.int32,
-                          device=svals.device)
-        _launch("kl_chain_collapse", svals.data_ptr(), S, M,
-                ssizes.data_ptr(), sslots.data_ptr(), skey.data_ptr(),
-                _ptr(smi), float(threshold), free_bits(h), plan["P"],
-                plan["smem"], status.data_ptr(), agg.data_ptr(),
-                out_v.data_ptr(), out_size.data_ptr(), out_slot.data_ptr(),
-                out_mi.data_ptr(), _ptr(parent), int(base))
+        status = torch.zeros(nsub + 1, dtype=torch.int32, device=dev)
+        agg = torch.empty(nsub * (3 + S), dtype=torch.int32, device=dev)
+        _launch("kl_chain_collapse", values_t.data_ptr(), values_t.stride(0),
+                S, M, order.data_ptr(), sizes.data_ptr(), slots.data_ptr(),
+                skey.data_ptr(), _ptr(smi), float(threshold), free_bits(h),
+                move["W"], move["cols"], move["smem"], plan["P"],
+                plan["threads"], plan["smem"], scratch.data_ptr(),
+                status.data_ptr(), agg.data_ptr(), out_v.data_ptr(),
+                out_size.data_ptr(), out_slot.data_ptr(), _ptr(out_mi),
+                _ptr(parent), int(base))
         launches["chain_collapse"] += 1
     return out_v, out_size, out_slot, out_mi
 

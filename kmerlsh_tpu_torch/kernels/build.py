@@ -38,8 +38,9 @@ SIGNATURES = {
                      _P),
     "kl_permute_state": (_P, _L, _I, _L, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                          _P, _P),
-    "kl_chain_collapse": (_P, _I, _L, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
-                          _P, _P, _P, _P, _P, _L, _P),
+    "kl_chain_collapse": (_P, _L, _I, _L, _P, _P, _P, _P, _P, _F, _I, _I,
+                          _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _L, _P),
     "kl_finalize_roots": (_L, _L, _P, _P, _P, _P, _P, _P),
     "kl_finalize_segments": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "kl_finalize_columns": (_I, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,

@@ -87,8 +87,9 @@ def _one_dist_iteration(mesh: Mesh, values_t, sizes, slots, parent,
 
     # ---- local phase: hash + single-pass chain collapse on my shard, its
     #      merges folded into my parent shard ----
-    values_t, sizes, slots = engine._one_iteration(
-        values_t, sizes, slots, parent, planes, threshold, h, base=base)[:3]
+    values_t, sizes, slots, _ = engine._one_iteration(
+        values_t, sizes, slots, parent, planes, threshold, h, base=base,
+        merged=False)
 
     # ---- exchange: a rotating window of e alive survivors ----
     pos, w_vals, w_sizes, w_slots = kernels.exchange_window(

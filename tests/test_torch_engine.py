@@ -289,3 +289,91 @@ def test_session_draws_its_planes_as_the_hook_would():
                     want[:2] + (want[2].flat, want[2].offsets)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert 1 < len(got[1]) < 3000
+
+
+# --- the state's moves into sort order ---------------------------------------
+
+@pytest.mark.parametrize("merge,deep_init", [("chain", True),
+                                             ("pairing", True),
+                                             ("pairing", False)])
+def test_session_counts_its_permutes(merge, deep_init):
+    """LAST_SESSION["permute_launches"] on the CPU: a chain session calls
+    kernels.permute_state once (compact_sort; each chain iteration moves
+    its state inside kernels.chain_collapse), a pairing session once more
+    for each pairing iteration."""
+    from kmerlsh_tpu_torch import testdata
+
+    counts, v = testdata.session_input(3000, 20, 7, "cpu")
+    thr = np.r_[0.95, 0.95 - 0.015 * np.arange(6)].astype(np.float32)
+    engine.cluster_counts(counts, v, thr, seed=3, merge=merge,
+                          deep_init=deep_init)
+    iters = sum(name.startswith("iter[")
+                for name, _ in engine.LAST_SESSION["programs"])
+    assert iters == len(thr)
+    pairing = 0 if merge == "chain" else iters - deep_init
+    assert engine.LAST_SESSION["permute_launches"] == 1 + pairing
+
+
+def test_permutes_outside_a_session_are_not_counted():
+    """pairing_merge called outside any session moves its state through
+    kernels.permute_state twice, and leaves the last session's
+    LAST_SESSION["permute_launches"] as it was."""
+    from kmerlsh_tpu_torch import testdata
+
+    counts, v = testdata.session_input(3000, 20, 7, "cpu")
+    engine.cluster_counts(counts, v, np.float32([0.95, 0.9]), seed=3)
+    assert engine.LAST_SESSION["permute_launches"] == 1
+    r = np.random.default_rng(5)
+    m = 64
+    values = torch.from_numpy(r.standard_normal((20, m)).astype(np.float32))
+    keys = torch.from_numpy(r.integers(0, 4, m).astype(np.int32))
+    proj = torch.from_numpy(r.standard_normal(m).astype(np.float32))
+    before = engine._permutes
+    engine.pairing_merge(values, torch.ones(m, dtype=torch.int32), keys,
+                         proj, 0.5, 2)
+    assert engine._permutes == before + 2
+    assert engine.LAST_SESSION["permute_launches"] == 1
+
+
+def test_pairing_iteration_without_merged_into():
+    """A pairing iteration that its caller asks for no merged_into returns
+    None for it, and the same state and forest as one that returns it."""
+    from kmerlsh_tpu_torch import kernels, testdata
+    from kmerlsh_tpu_torch.ops import rng
+
+    counts, v = testdata.session_input(3000, 20, 9, "cpu")
+    values, sizes = kernels.abundance_transform(counts, torch.from_numpy(v))
+    slots = torch.arange(3000, dtype=torch.int32)
+    planes = rng.draw_hyperplanes(4, 0, 20)
+    outs = []
+    for merged in (True, False):
+        parent = slots.clone()
+        outs.append((engine._one_iteration(values, sizes, slots, parent,
+                                           planes, 0.95, 11, "pairing", 4,
+                                           merged=merged), parent))
+    (full, p_full), (bare, p_bare) = outs
+    assert bare[3] is None and int((full[3] >= 0).sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(full[:3], bare[:3]))
+    assert torch.equal(p_full, p_bare)
+
+
+def test_chain_iteration_without_merged_into():
+    """A chain iteration that its caller asks for no merged_into returns
+    None for it, and the same state and forest as one that makes it."""
+    from kmerlsh_tpu_torch import kernels, testdata
+    from kmerlsh_tpu_torch.ops import rng
+
+    counts, v = testdata.session_input(3000, 20, 9, "cpu")
+    values, sizes = kernels.abundance_transform(counts, torch.from_numpy(v))
+    slots = torch.arange(3000, dtype=torch.int32)
+    planes = rng.draw_hyperplanes(4, 0, 20)
+    outs = []
+    for merged in (True, False):
+        parent = slots.clone()
+        outs.append((engine._one_iteration(values, sizes, slots, parent,
+                                           planes, 0.95, 11, merged=merged),
+                     parent))
+    (full, p_full), (bare, p_bare) = outs
+    assert bare[3] is None and int((full[3] >= 0).sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(full[:3], bare[:3]))
+    assert torch.equal(p_full, p_bare)

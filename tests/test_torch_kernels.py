@@ -174,13 +174,19 @@ def test_sort_keys_refuses_bad_input(dev):
             kernels.sort_keys(key, 31, bad)
 
 
-def _random_case(dev, n):
-    # 16 profiles in 8 buckets: chains thousands long, across tile borders
+def _random_input(dev, n):
+    # 16 profiles in 8 buckets: chains thousands long, across tile borders;
+    # the state as an iteration holds it, with its order and sorted keys
     _, _, values, sizes = _state(n, dev, n_prof=16)
     key, _ = kernels.lsh_keys(values, sizes,
                               rng.draw_hyperplanes(1, 1, S).to(dev), 3)
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
+    return values, sizes, slots, order, skey
+
+
+def _random_case(dev, n):
+    values, sizes, slots, order, skey = _random_input(dev, n)
     return (*kernels.permute_state(values, sizes, slots, order), skey)
 
 
@@ -218,34 +224,135 @@ def _runs_case(dev, s, n):
                  for a in (vals.T, sizes, slots, key))
 
 
+def _unsorted(sv, ss, sl, seed, sliced=False):
+    """An input state and an order that sorts it into (sv, ss, sl):
+    column order[i] of the input is column i of the sorted state. With
+    ``sliced``, the values are a column slice of a wider matrix, as an
+    iteration's ``[:, :na]`` leaves them."""
+    n = ss.shape[0]
+    g = torch.Generator(device=sv.device).manual_seed(seed)
+    order = torch.randperm(n, generator=g, device=sv.device).to(torch.int32)
+    wide = torch.full((sv.shape[0], n + 13 * sliced), float("nan"),
+                      device=sv.device)
+    values = wide[:, :n]
+    values[:, order.long()] = sv
+    sizes, slots = torch.empty_like(ss), torch.empty_like(sl)
+    sizes[order.long()], slots[order.long()] = ss, sl
+    return values, sizes, slots, order
+
+
+def _collapse_same(values, sizes, slots, order, skey, thr, h, smi=None,
+                   parent=None, base=0):
+    """chain_collapse against permute_state_plain and chain_collapse_plain
+    on the sorted state: sizes, slots, merged_into and the parent entries
+    exact, the centroids within rounding. Returns the kernel's outputs."""
+    pk = None if parent is None else parent.clone()
+    pp = None if parent is None else parent.clone()
+    k = kernels.chain_collapse(values, sizes, slots, order, skey, thr, h, smi,
+                               pk, base)
+    sv, ss, sl = kernels.permute_state_plain(values, sizes, slots, order)
+    p = kernels.chain_collapse_plain(sv, ss, sl, skey, thr, h,
+                                     None if smi is None else smi[order],
+                                     pp, base)
+    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3])):
+        assert torch.equal(a, b)
+    if parent is not None:
+        assert torch.equal(pk, pp)
+    # the kernel sums each chain in another order than the log-step scan
+    torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
+    return (*k, pk)
+
+
 CHAIN_CASES = ([("random", S, 1 << 16, 0.95), ("random", S, 70000, 0.5)]
-               + [("runs", s, 70001, 0.9) for s in (1, 20, 100, 300)])
+               + [("runs", s, 70001, 0.9) for s in (1, 20, 100, 124, 300)])
 
 
+@pytest.mark.parametrize("sliced", [False, True])
 @pytest.mark.parametrize("with_mi,with_parent",
                          [(True, True), (True, False), (False, True),
                           (False, False)])
 @pytest.mark.parametrize("kind,s,n,thr", CHAIN_CASES)
 def test_chain_collapse_matches_plain(dev, kind, s, n, thr, with_mi,
-                                      with_parent):
-    sv, ss, sl, skey = (_random_case(dev, n) if kind == "random"
-                        else _runs_case(dev, s, n))
-    h = 3
+                                      with_parent, sliced):
+    """The state as an iteration holds it (a column slice where
+    ``sliced``), its order and sorted keys: the outputs of permute_state
+    and the sorted state's collapse."""
+    if kind == "random":
+        values, sizes, slots, order, skey = _random_input(dev, n)
+        if sliced:
+            wide = torch.full((s, n + 7), float("nan"), device=dev)
+            wide[:, :n] = values
+            values = wide[:, :n]
+    else:
+        sv, ss, sl, skey = _runs_case(dev, s, n)
+        values, sizes, slots, order = _unsorted(sv, ss, sl, n + s, sliced)
     g = torch.Generator(device=dev).manual_seed(n)
     smi = (torch.where(torch.rand(n, device=dev, generator=g) < 0.1, 7, -1)
            .to(torch.int32) if with_mi else None)
-    pk = (torch.arange(n, dtype=torch.int32, device=dev) if with_parent
-          else None)
-    pp = None if pk is None else pk.clone()
-    k = kernels.chain_collapse(sv, ss, sl, skey, thr, h, smi, pk)
-    p = kernels.chain_collapse_plain(sv, ss, sl, skey, thr, h, smi, pp)
-    assert int((k[1] > 0).sum()) < int((ss > 0).sum()) * 3 // 4
-    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3])):
-        assert torch.equal(a, b)
-    if with_parent:
-        assert torch.equal(pk, pp)
-    # the kernel sums each chain in another order than the log-step scan
-    torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
+    parent = (torch.arange(n, dtype=torch.int32, device=dev) if with_parent
+              else None)
+    k = _collapse_same(values, sizes, slots, order, skey, thr, 3, smi,
+                       parent)
+    assert int((k[1] > 0).sum()) < int((sizes > 0).sum()) * 3 // 4
+
+
+def test_chain_collapse_equals_the_parent_pair_at_the_cell_width(dev):
+    """At 2^20 x 124 (the benchmark cell's width), on a session's first
+    iteration at 0.95 and on a looser one at 0.5: the fused entry against
+    the pair it replaces on the card (permute_state, then the plain
+    collapse of its sorted copy): sizes, slots, merged_into and the parent
+    byte for byte, the centroids within rounding."""
+    n, s = 1 << 20, 124
+    counts, v = testdata.session_input(n, s, 11, dev)
+    values, sizes = kernels.abundance_transform(counts,
+                                                torch.from_numpy(v).to(dev))
+    del counts
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    parent = slots.clone()
+    for it, thr in enumerate((0.95, 0.5)):
+        h = engine._active_h(sizes)
+        key, _ = kernels.lsh_keys(values, sizes,
+                                  rng.draw_hyperplanes(11, it, s).to(dev), h)
+        skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
+        pp = parent.clone()
+        k = kernels.chain_collapse(values, sizes, slots, order, skey, thr, h,
+                                   None, parent)
+        sv, ss, sl = kernels.permute_state(values, sizes, slots, order)
+        p = kernels.chain_collapse_plain(sv, ss, sl, skey, thr, h, None, pp)
+        for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3]),
+                     (parent, pp)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
+        assert int((k[3] >= 0).sum()) > n // 100
+        na = int((k[1] > 0).sum())
+        # the next iteration's input: the alive prefix, a column slice
+        order = kernels.sort_keys((k[1] == 0).to(torch.int32), 1)[1]
+        values, sizes, slots = kernels.permute_state(k[0], k[1], k[2], order)
+        values, sizes, slots = values[:, :na], sizes[:na], slots[:na]
+
+
+def test_chain_collapse_without_merged_into(dev):
+    """merged=False: no merged_into (None), the rest as with it."""
+    values, sizes, slots, order, skey = _random_input(dev, 70001)
+    pk, pb = slots.clone(), slots.clone()
+    k = kernels.chain_collapse(values, sizes, slots, order, skey, 0.9, 3,
+                               None, pk)
+    b = kernels.chain_collapse(values, sizes, slots, order, skey, 0.9, 3,
+                               None, pb, merged=False)
+    assert b[3] is None and int((k[3] >= 0).sum()) > 0
+    assert all(torch.equal(x, y) for x, y in zip(k[:3], b[:3]))
+    assert torch.equal(pk, pb)
+
+
+def test_chain_collapse_refuses_bad_input(dev):
+    values, sizes, slots, order, skey = _random_input(dev, 4096)
+    for bad in ((values.double(), sizes, slots, order, skey),
+                (values, sizes.long(), slots, order, skey),
+                (values, sizes, slots, order.long(), skey),
+                (values[:, ::2], sizes[:2048], slots[:2048], order[:2048],
+                 skey[:2048])):
+        with pytest.raises(ValueError):
+            kernels.chain_collapse(*bad, 0.9, 3)
 
 
 def test_finalize_exact(dev):
@@ -527,20 +634,14 @@ def test_exchange_fold_exact(dev, rank, n, e):
                               rng.draw_hyperplanes(3, 0, S).to(dev), 4)
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
-    sv, ss, sl = kernels.permute_state(values, sizes, slots, order)
-    local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, 4)
+    local = kernels.chain_collapse(values, sizes, slots, order, skey, 0.95, 4)
     (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
      base) = testdata.exchange_inputs(*local, 4, rank, e)
     assert int((glob[2] >= 0).sum()) > 0 and int((lmi >= 0).sum()) > 0
-    kp, pp = parent.clone(), parent.clone()
-    k = kernels.chain_collapse(sv, ss, sl + base, skey, 0.95, 4, None, kp,
-                               base)
-    p = kernels.chain_collapse_plain(sv, ss, sl + base, skey, 0.95, 4, None,
-                                     pp, base)
-    for a, b in zip(k[1:], p[1:]):
-        assert torch.equal(a, b)
-    assert torch.equal(kp, pp)
+    *k, kp = _collapse_same(values, sizes, slots + base, order, skey, 0.95, 4,
+                            None, parent, base)
     assert all(torch.equal(a, b) for a, b in zip(k[1:], (ls, lsl, lmi)))
+    pp = kp.clone()   # equal to the plain collapse's parent
     kv, ks = lv.clone(), ls.clone()
     kernels.exchange_fold(*glob, w_slots, pos, kv, ks, kp, base)
     pv, ps = lv.clone(), ls.clone()
@@ -550,22 +651,18 @@ def test_exchange_fold_exact(dev, rank, n, e):
     assert not torch.equal(kp, parent)
 
 
+@pytest.mark.parametrize("sliced", [False, True])
 @pytest.mark.parametrize("base", [1, 70001 * 3])
-def test_chain_collapse_folds_at_a_base(dev, base):
+def test_chain_collapse_folds_at_a_base(dev, base, sliced):
     """A parent shard of the slots [base, base + n): the kernel writes the
     entry of slot s at s - base, as the plain version does."""
     sv, ss, sl, skey = _runs_case(dev, S, 70001)
+    values, sizes, slots, order = _unsorted(sv, ss, sl + base, base, sliced)
     n = sl.shape[0]
-    pk = torch.arange(base, base + n, dtype=torch.int32, device=dev)
-    pp = pk.clone()
-    k = kernels.chain_collapse(sv, ss, sl + base, skey, 0.9, 3, None, pk,
-                               base)
-    p = kernels.chain_collapse_plain(sv, ss, sl + base, skey, 0.9, 3, None,
-                                     pp, base)
-    for a, b in ((k[1], p[1]), (k[2], p[2]), (k[3], p[3]), (pk, pp)):
-        assert torch.equal(a, b)
-    assert int((pk != torch.arange(base, base + n, dtype=torch.int32,
-                                   device=dev)).sum()) > n // 4
+    shard = torch.arange(base, base + n, dtype=torch.int32, device=dev)
+    *_, pk = _collapse_same(values, sizes, slots, order, skey, 0.9, 3, None,
+                            shard, base)
+    assert int((pk != shard).sum()) > n // 4
 
 
 def test_exchange_wrappers_refuse_bad_input(dev):

@@ -58,6 +58,58 @@ def test_plans_take_every_s_the_engine_took():
         kernels.permute_plan(4000, 1 << 20)
 
 
+# S: (W, row words, P, threads, shared memory bytes)
+CHAIN_PLANS = {1: (8, 12, 512, 512, 35224), 20: (24, 28, 256, 256, 34276),
+               124: (128, 132, 64, 128, 37436), 254: (256, 260, 32, 128, 37964)}
+
+
+@pytest.mark.parametrize("S", sorted(CHAIN_PLANS))
+def test_chain_plan_stages_whole_scratch_rows(S):
+    """K3 stages a scratch row a position (K2's W words: the values, the
+    size and the slot) into rows of W + 4 words: 16-byte aligned pieces, an
+    odd number of them a row, so the 16-byte reads of eight neighbouring
+    rows cover the 32 banks; P + 2 rows (a halo each side) within the stage
+    budget; at least CHAIN_THREADS threads, so that the SM holds more warps
+    than the positions staged; at the cell's width (124) six blocks a SM."""
+    W, row, P, threads, smem = CHAIN_PLANS[S]
+    plan = kernels.chain_plan(S, 1 << 24)
+    assert (plan["W"], plan["row"], plan["P"], plan["threads"],
+            plan["smem"]) == CHAIN_PLANS[S]
+    assert W == kernels.permute_plan(S, 1 << 24)["W"] >= S + 2
+    assert row == W + 4 and (4 * row) % 16 == 0 and (row // 4) % 2 == 1
+    # the 16-byte pieces of eight neighbouring rows start on distinct
+    # groups of four banks
+    assert len({(r * row) % 32 for r in range(8)}) == 8
+    assert 4 * (P + 2) * row <= kernels.STAGE_BYTES
+    assert P == 512 or 4 * (2 * P + 2) * row > kernels.STAGE_BYTES
+    assert threads == max(P, kernels.CHAIN_THREADS) and threads % 32 == 0
+    assert P <= threads <= 512
+    assert smem <= kernels.SMEM_LIMIT
+    if S == 124:
+        assert 6 * (smem + 1024) <= kernels.SMEM_SM
+
+
+def test_chain_plan_follows_the_source():
+    """chain_plan's shared memory is csrc/chain_collapse.cu's
+    kl_chain_words, its expression evaluated at each plan."""
+    import re
+
+    src = (build.CSRC / "chain_collapse.cu").read_text()
+    body = re.search(r"kl_chain_words\(long long S, long long W,\s+long long "
+                     r"P\) \{(.*?)\n\}", src, re.S).group(1)
+    scan = re.search(r"scan = (.*?);", body).group(1)
+    words = re.search(r"return (.*?);", body, re.S).group(1)
+    cond, then, other = re.fullmatch(r"(.*) \? (.*) : (.*)", scan).groups()
+    for S in (1, 3, 20, 100, 124, 254, 300, 1557):
+        plan = kernels.chain_plan(S, 1 << 20)
+        env = dict(S=S, W=plan["W"], P=plan["P"], nw=plan["P"] // 32)
+        env["scan"] = eval(then if eval(cond, env) else other, env)
+        assert 4 * eval(" ".join(words.split()), env) == plan["smem"], S
+    cap = re.search(r"#define KL_CHAIN_MAX_T (\d+)", src).group(1)
+    assert all(kernels.chain_plan(S, 1 << 20)["threads"] <= int(cap)
+               for S in (1, 20, 124))
+
+
 def test_chain_plan_fills_the_card_at_every_capacity():
     # 132 SMs: at 2^20 x 20 and above, several blocks per SM
     for M in (1 << 20, 2_000_000, 1 << 24):

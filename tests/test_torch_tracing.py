@@ -131,8 +131,8 @@ def test_profiler_off_opens_no_record_function(monkeypatch):
     cents, sizes, groups = engine.cluster_counts(counts, v, thr, seed=4)
     session = engine.LAST_SESSION
     assert set(session) == {"device_seconds", "pull_seconds", "pull_bytes",
-                            "pull_host_allocs", "planes_launches", "programs",
-                            "clusters"}
+                            "pull_host_allocs", "planes_launches",
+                            "permute_launches", "programs", "clusters"}
     names = [p for p, _ in session["programs"]]
     assert names[0] == f"transform@{counts.shape[1]}"
     assert all(re.fullmatch(r"iter\[\d+\]@\d+", p) for p in names[1:-1])

@@ -5,6 +5,7 @@ mode-C session's bytes a row.
     python3 tools/kernel_split.py [M ...]      (default 2^21 and 2^24)
     python3 tools/kernel_split.py reads
     python3 tools/kernel_split.py exchange [c ...]   (default 2^20 and 2^22)
+    python3 tools/kernel_split.py chain [M ...]      (default 2^24)
     python3 tools/kernel_split.py memory
     python3 tools/kernel_split.py wrs
 
@@ -25,8 +26,12 @@ directory bits (the kernel's masks equal the plain version's at each).
 20 samples, e = 4096 (chip_smoke.py phase 3's local phase, then
 testdata.exchange_inputs): exchange_window, exchange_fold, and
 chain_collapse at the rank's base as the tree's sharded iteration calls it
-(with the local fold where the tree folds there, and without), and the sum
-of one exchange's chain_collapse and exchange_fold. ``wrs`` times
+(with the local fold where the tree folds there, and without; where its
+chain_collapse takes the order, K2's move of the state included), and the
+sum of one exchange's chain_collapse and exchange_fold. ``chain`` times K2
+and the chain collapse at M x 124, the benchmark cell's width, on a
+session's first iteration (fused in this tree, K2 then K3 in a parent
+tree), beside their plain versions and bounds. ``wrs`` times
 wrs_verdicts (checked against its plain version: verdicts exact, tails
 within rtol 1e-5 / atol 1e-6) on testdata.wrs_rows at 2^20 x (10 + 10)
 and 2^20 x (50 + 50) (chip_smoke.py phase 3's rows), at 2^18 x (300 +
@@ -168,6 +173,76 @@ def measure_reads() -> None:
     kernels.key_directory_bits = chosen
 
 
+def _fused() -> bool:
+    """Whether this tree's chain_collapse moves the state itself (takes
+    the order), or takes K2's sorted copy (a parent tree's)."""
+    import inspect
+
+    return "order" in inspect.signature(kernels.chain_collapse).parameters
+
+
+def measure_chain(M: int) -> None:
+    """K2 and K3 where the benchmark's metahit124.cluster cell runs them
+    first: a session's first iteration at M x 124 (testdata.session_input,
+    seed 11; h of the alive count, the planes of iteration 0, 0.95, the
+    parent fold). K2 (permute_state) alone; the chain collapse as the tree
+    calls it (fused: K2's transpose and K3's staging by the order; a
+    parent tree: K2 then K3 on its sorted copy, and K3 alone); the plain
+    versions; the bounds of the functions (benchmark/harness/roofline.py's
+    counts: K2 8 S M + 20 M bytes, K3 8 S M + 24 M + 4 a dying slot)."""
+    s, dev = cs.CELL_S, cs.DEV
+    counts, v = testdata.session_input(M, s, 11, dev)
+    vt, sz = kernels.abundance_transform(counts, torch.from_numpy(v).to(dev))
+    del counts
+    h = engine._active_h_of(int((sz > 0).sum()))
+    key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(11, 0, s).to(dev),
+                              h)
+    skey, order = kernels.sort_keys(key, 31)
+    sl = torch.arange(M, dtype=torch.int32, device=dev)
+    parent = sl.clone()
+    k2_bytes = 8 * s * M + 20 * M
+    k2 = report("permute_state (K2)", M,
+                lambda: kernels.permute_state(vt, sz, sl, order))
+    sv, ss, ssl = kernels.permute_state(vt, sz, sl, order)
+    if _fused():
+        k = kernels.chain_collapse(vt, sz, sl, order, skey, 0.95, h, None,
+                                   parent)
+        fused = report("chain_collapse, fused (K2's transpose + K3)", M,
+                       lambda: kernels.chain_collapse(
+                           vt, sz, sl, order, skey, 0.95, h, None, parent))
+    else:
+        k = kernels.chain_collapse(sv, ss, ssl, skey, 0.95, h, None, parent)
+        k3 = report("chain_collapse on K2's sorted copy (K3)", M,
+                    lambda: kernels.chain_collapse(sv, ss, ssl, skey, 0.95,
+                                                   h, None, parent))
+        fused = report("permute_state + chain_collapse (K2 + K3)", M,
+                       lambda: kernels.chain_collapse(
+                           *kernels.permute_state(vt, sz, sl, order), skey,
+                           0.95, h, None, parent))
+        cs.log(f"K2 + K3 at {M} x {s}: {k2:.4f} + {k3:.4f} = "
+               f"{k2 + k3:.4f} ms")
+    pp = torch.arange(M, dtype=torch.int32, device=dev)
+    p = kernels.chain_collapse_plain(sv, ss, ssl, skey, 0.95, h, None, pp)
+    same = all(torch.equal(a, b) for a, b in zip((*k[1:], parent),
+                                                  (*p[1:], pp)))
+    gap = float((k[0] - p[0]).abs().max())
+    dying = int((k[3] >= 0).sum())
+    del k, p
+    k2_plain = cs.cuda_ms(
+        lambda: kernels.permute_state_plain(vt, sz, sl, order), 3, 1)
+    k3_plain = cs.cuda_ms(lambda: kernels.chain_collapse_plain(
+        sv, ss, ssl, skey, 0.95, h, None, pp.clone()), 3, 1)
+    k3_bytes = 8 * s * M + 24 * M + 4 * dying
+    bound = 1e3 / cs.HBM_BYTES_PER_S
+    cs.log(f"chain at {M} x {s} (h = {h}, {dying} slots die): ints and "
+           f"parent exact against the plain collapse of the sorted state: "
+           f"{same}, centroids within {gap:.3g}; K2 kernel {k2:.4f} / plain "
+           f"{k2_plain:.4f} / bound {k2_bytes * bound:.4f} ms; K2 + K3 "
+           f"{fused:.4f} / plain {k2_plain + k3_plain:.4f} (K3's "
+           f"{k3_plain:.4f}) / bound {(k2_bytes + k3_bytes) * bound:.4f} ms "
+           f"(K3's {k3_bytes * bound:.4f})")
+
+
 def measure_exchange(c: int) -> None:
     import inspect
 
@@ -181,16 +256,23 @@ def measure_exchange(c: int) -> None:
     skey, order = (kernels.sort_keys(key, 31) if hasattr(kernels, "sort_keys")
                    else torch.sort(key, stable=True))   # a parent tree's
     sl = torch.arange(c, dtype=torch.int32, device=dev)
-    sv, ss, sl = kernels.permute_state(vt, sz, sl, order)
-    local = kernels.chain_collapse(sv, ss, sl, skey, 0.95, h)
+    if _fused():   # K3 takes the state and the order
+        state = (vt, sz)
+        local = kernels.chain_collapse(vt, sz, sl, order, skey, 0.95, h)
+    else:          # a parent tree's K3 takes K2's sorted copy
+        vt, sz, sl = kernels.permute_state(vt, sz, sl, order)
+        state = (vt, sz)
+        local = kernels.chain_collapse(vt, sz, sl, skey, 0.95, h)
     (*glob, w_slots, pos, lv, ls, lsl, lmi, parent,
      base) = testdata.exchange_inputs(*local, 4, 1, e)
     slb = sl + base
+    rest = (order, skey) if _fused() else (skey,)
     values, sizes, slots, _ = local
     report("exchange_window", c,
            lambda: kernels.exchange_window(values, sizes, slots, e, 1))
     bare = report("chain_collapse without the fold", c,
-                  lambda: kernels.chain_collapse(sv, ss, slb, skey, 0.95, h))
+                  lambda: kernels.chain_collapse(*state, slb, *rest, 0.95,
+                                                 h))
     # the fold and the write-back run in place: each call writes the same
     # entries again
     if "mi" in inspect.signature(kernels.exchange_fold).parameters:
@@ -201,7 +283,7 @@ def measure_exchange(c: int) -> None:
                                                     base))
     else:
         k3 = report("chain_collapse with the local fold", c,
-                    lambda: kernels.chain_collapse(sv, ss, slb, skey, 0.95,
+                    lambda: kernels.chain_collapse(*state, slb, *rest, 0.95,
                                                    h, None, parent, base))
         fold = report("exchange_fold (global merges)", c,
                       lambda: kernels.exchange_fold(*glob, w_slots, pos, lv,
@@ -337,6 +419,10 @@ def main() -> None:
     if sys.argv[1:] in (["reads"], ["memory"], ["wrs"]):
         {"reads": measure_reads, "memory": measure_memory,
          "wrs": measure_wrs}[sys.argv[1]]()
+        return
+    if sys.argv[1:2] == ["chain"]:
+        for M in [int(a) for a in sys.argv[2:]] or [cs.FULL]:
+            measure_chain(M)
         return
     if sys.argv[1:2] == ["exchange"]:
         for c in [int(a) for a in sys.argv[2:]] or [1 << 20, 1 << 22]:

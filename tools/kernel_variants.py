@@ -486,14 +486,12 @@ VARIANTS = {
 INEXACT = ("fma", "no-float", "no-memory", "fma-no-memory")
 
 VALUES_PLAIN = [
-    ("chain_collapse.cu", "kl_cp_async4_pol(trow + i, row + i, stream)",
-     "kl_cp_async4(trow + i, row + i)"),
-    ("chain_collapse.cu", "kl_cp_async4_pol(trow - 1, row - 1, stream)",
-     "kl_cp_async4(trow - 1, row - 1)"),
-    ("chain_collapse.cu", "kl_cp_async4_pol(trow + P, row + P, stream)",
-     "kl_cp_async4(trow + P, row + P)"),
-    ("chain_collapse.cu", "kl_st_pol(out_v + (long long)s * M + p, x, stream);",
-     "out_v[(long long)s * M + p] = x;"),
+    ("chain_collapse.cu",
+     "kl_cp_async16_pol(d, scr + (long long)from * W + 4 * q, stream)",
+     "kl_cp_async16(d, scr + (long long)from * W + 4 * q)"),
+    ("chain_collapse.cu",
+     "if (u < nk) kl_st_pol(o + (long long)u * M, x[u], stream);",
+     "if (u < nk) o[(long long)u * M] = x[u];"),
 ]
 PARENT_PLAIN = [
     ("chain_collapse.cu",
@@ -501,16 +499,19 @@ PARENT_PLAIN = [
      "parent[(long long)slot - pbase] = hslot;"),
 ]
 INTS_PLAIN = [
-    ("chain_collapse.cu", "    csz[i] = __ldcs(ssize + base + i);\n"
-     "    ckey[i] = __ldcs(skey + base + i);\n"
-     "    cslot[i] = __ldcs(sslot + base + i);",
-     "    csz[i] = ssize[base + i];\n    ckey[i] = skey[base + i];\n"
-     "    cslot[i] = sslot[base + i];"),
-    ("chain_collapse.cu", "    __stcs(out_size + p, last ? W : (alive ? 0 : sz));\n"
+    ("chain_collapse.cu",
+     "    src[r] = in ? (own ? __ldcs(order + p) : order[p]) : -1;\n"
+     "    ckey[r - 1] = in ? (own ? __ldcs(skey + p) : skey[p]) : KL_BIG_KEY;",
+     "    src[r] = in ? order[p] : -1;\n"
+     "    ckey[r - 1] = in ? skey[p] : KL_BIG_KEY;"),
+    ("chain_collapse.cu",
+     "    __stcs(out_size + p, last ? Wc : (alive ? 0 : sz));\n"
      "    if (out_mi)\n      __stcs(out_mi + p, (alive && !last) ? hslot\n"
-     "                                        : (smi ? __ldcs(smi + p) : -1));",
-     "    out_size[p] = last ? W : (alive ? 0 : sz);\n"
-     "    if (out_mi) out_mi[p] = (alive && !last) ? hslot : (smi ? smi[p] : -1);"),
+     "                                        : (smi ? smi[__ldcs(order + p)]"
+     " : -1));",
+     "    out_size[p] = last ? Wc : (alive ? 0 : sz);\n"
+     "    if (out_mi) out_mi[p] = (alive && !last) ? hslot : "
+     "(smi ? smi[order[p]] : -1);"),
     ("chain_collapse.cu", "__stcs(out_slot + p, hslot);", "out_slot[p] = hslot;"),
     ("chain_collapse.cu", "__stcs(out_slot + p, slot);", "out_slot[p] = slot;"),
 ]
@@ -732,8 +733,9 @@ def timed(fn, args, want) -> str:
 
 
 def fold_inputs(M: int):
-    """Phase 3's sorted state of the first iteration at M x 20, its slots
-    offset to rank 1's, the parent shard, the base and h."""
+    """Phase 3's state of the first iteration at M x 20 with its order and
+    sorted keys, its slots offset to rank 1's, the parent shard, the base
+    and h."""
     S, dev = cs.S, cs.DEV
     counts = torch.from_numpy(cs.make_counts(M, seed=1)).to(dev)
     cov = torch.log(counts.to(torch.int32).clamp(min=1).double()).sum(1)
@@ -744,9 +746,8 @@ def fold_inputs(M: int):
     skey, order = (kernels.sort_keys(key, 31) if hasattr(kernels, "sort_keys")
                    else torch.sort(key, stable=True))   # a parent tree's
     sl = torch.arange(M, M + M, dtype=torch.int32, device=dev)
-    sv, ss, sl = kernels.permute_state(vt, sz, sl, order)
     parent = torch.arange(M, M + M, dtype=torch.int32, device=dev)
-    return (sv, ss, sl, skey), parent, M, h
+    return (vt, sz, sl, order, skey), parent, M, h
 
 
 def main_fold() -> None:
@@ -755,8 +756,10 @@ def main_fold() -> None:
         build._lib = libs["committed"]
         state, parent0, base, h = fold_inputs(M)
         want_p = parent0.clone()
-        want = kernels.chain_collapse_plain(*state, 0.95, h, None, want_p,
-                                            base)
+        vt, sz, sl, order, skey = state
+        want = kernels.chain_collapse_plain(
+            *kernels.permute_state_plain(vt, sz, sl, order), skey, 0.95, h,
+            None, want_p, base)
         for rnd in range(2):
             for name, lib in libs.items():
                 build._lib = lib
