@@ -61,7 +61,15 @@ Phases:
      chain_collapse there too, at the launch plan of the cell's width: a
      session's first iteration at 2^24 x 124, exact against K2's and K3's
      plain versions (centroids within rtol 1e-5) and timed beside their
-     functions' bound; then draw_planes, a session's hyperplanes in one launch, bit for bit its
+     functions' bound; then the mode-C kernels where the benchmark's
+     kostic18.cluster cell runs them, a session's first iteration at 10^8
+     x 18, whose profile-major scratch holds 2.4e9 words, past 2^31:
+     sort_keys on its keys, permute_state by its order and the fused
+     chain_collapse (P = 256), each held to its plain twin on the 2^15-
+     aligned windows of positions at the middle and at the far end of the
+     order (ints exact, centroids within rtol 1e-5), and finalize on the
+     transformed state as 10^8 one-row clusters (its column scratch 10^8 x
+     24 words), bit for bit; each timed beside its bound; then draw_planes, a session's hyperplanes in one launch, bit for bit its
      plain twin at the benchmark cell's 101 x 124 x 31 (seeds 0,
      2100000013, 2^32 - 1) and at 101 x 20 x 31, its device function on
      all 2^23 mantissas the uniform takes, and its time beside the twin's
@@ -104,6 +112,12 @@ Phases:
      the traced run every deferred pull's device-to-pinned copies on a
      stream that no kernel ran on; each run's wall and batch passes'
      span logged;
+  5e. the benchmark's kostic18 cohort: a 10^8 x 18 count matrix with the
+     distribution of bench.py make_data, mode C through the CLI (-I 100
+     -N 0.8, --batch-thresh 1e8), which must cluster it in one engine
+     session (kmap_size <= eff_batch: no batch pass, one transform and one
+     finalize launch), its kernels' scratch past 2^31 words; the result
+     checked as phase 5's, its stage times, programs and peak logged;
   6. mode E at full size: a 2^24 x 20 matrix whose rows are the 31-mers of
      random source sequences (one abundance profile per source, a few per
      cent shifted between the groups), 20 FASTQs of 2^16 reads x 150 bp,
@@ -184,6 +198,8 @@ LATE = 1 << 21           # ~ the capacity of phase 5's iterations 6-20
 SORT_SMALL = (1 << 14, 1 << 16)   # phase 3's smaller sorts: the sharded
                                   # global phase's 4 x 4,096 keys, and 2^16
 FULL = 1 << 24
+NARROW_S, NARROW_M = 18, 10**8   # the benchmark's kostic18 cohort: one
+                                 # session of the upstream's batch
 CELL_S = 124             # the samples of the benchmark's metahit124 cells
 CELL_THR = np.r_[0.95, 0.95 - (0.95 - 0.8) / 100 * np.arange(100)].astype(
     np.float32)          # their anneal: -I 100 -N 0.8
@@ -275,14 +291,14 @@ def make_counts(n_rows: int, seed: int = 0) -> np.ndarray:
 
 def write_matrix(work: str, counts: np.ndarray) -> list[float]:
     """kmer_count.bin/.log and the sample lists l1/l2 of a mode-C run."""
-    n = counts.shape[1]
+    s, n = counts.shape
     counts.astype("<u2").tofile(os.path.join(work, countsio.BIN_NAME))
     cov = np.log(np.maximum(counts, 1).astype(np.float64)).sum(axis=1)
     with open(os.path.join(work, countsio.LOG_NAME), "w") as f:
         f.write(str(n))
         for c in cov:
             f.write("\t%f" % c)
-    for name, idx in (("l1", range(S // 2)), ("l2", range(S // 2, S))):
+    for name, idx in (("l1", range(s // 2)), ("l2", range(s // 2, s))):
         with open(os.path.join(work, name), "w") as f:
             for i in idx:
                 f.write(f"s{i}.fastq db{i}\n")
@@ -676,6 +692,123 @@ def phase_chain_cell() -> None:
     log(f"chain_collapse at the cell ({FULL} x {CELL_S}, h = {h}, {dying} "
         f"slots die at {thr}): exact against K2's and K3's plain versions")
     log_kernels({"chain_collapse": res}, f"{FULL} x {CELL_S}")
+
+
+NARROW_WINDOW = 1 << 18   # positions of a compared window, a multiple of
+                          # 2^15: no chain crosses its ends
+
+
+def _narrow_windows() -> list[slice]:
+    """The compared windows of positions at 10^8: from the last multiple of
+    2^15 at least NARROW_WINDOW before the end to the end, and NARROW_WINDOW
+    from one in the middle."""
+    far = (NARROW_M - NARROW_WINDOW) >> 15 << 15
+    mid = (NARROW_M // 2) >> 15 << 15
+    return [slice(far, NARROW_M), slice(mid, mid + NARROW_WINDOW)]
+
+
+def phase_narrow_cell() -> None:
+    """The mode-C kernels where the benchmark's kostic18.cluster cell runs
+    them, past 2^31 words of K2's profile-major scratch (10^8 x 24): a
+    session's first iteration at 10^8 x 18 (testdata.session_input, seed
+    11; the alive count's h, iteration 0's planes, the first threshold,
+    the parent fold). sort_keys on the iteration's keys, exact on all of
+    them; permute_state by their order and the fused chain_collapse (P =
+    256), each held to its plain twin on the windows of _narrow_windows,
+    whose source rows lie past word 2^31 (ints and the parent entries of
+    the window's slots exact, centroids within rtol 1e-5 and atol 1e-6, as
+    tests/test_torch_narrow_cohort.py holds them); finalize on the
+    transformed state as 10^8 clusters of one row, its columns through a
+    scratch of 10^8 x 24 words, exact. Each timed beside its bound, its
+    plain version at full size."""
+    M, S_ = NARROW_M, NARROW_S
+    at = f"{M} x {S_}"
+    counts, v = testdata.session_input(M, S_, 11, DEV)
+    vt, sz = kernels.abundance_transform(counts, torch.from_numpy(v).to(DEV))
+    del counts
+    if int((sz > 0).sum()) != M:
+        raise AssertionError(f"narrow cell: not every row of {at} kept")
+    h = engine._active_h_of(M)
+    key, _ = kernels.lsh_keys(
+        vt, sz, rng.draw_hyperplanes(11, 0, S_).to(DEV), h)
+    res = {"sort_keys": sort_case(key, lsh.KEY_BITS, f"lsh_keys at {at}")}
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
+    del key
+    sl = torch.arange(M, dtype=torch.int32, device=DEV)
+    W = kernels.permute_plan(S_, M)["W"]
+    windows = _narrow_windows()
+    for w in windows:
+        if int(order[w].max()) * W < 2**31:
+            raise AssertionError(f"narrow cell: window {w} reads no scratch "
+                                 f"row past word 2^31")
+
+    k = kernels.permute_state(vt, sz, sl, order)
+    errs = []
+    for w in windows:
+        p = kernels.permute_state_plain(vt, sz, sl, order[w])
+        errs.append(_exact(f"permute_state at {at}, positions {w}",
+                           zip((k[0][:, w], k[1][w], k[2][w]), p)))
+    del k, p
+    res["permute_state"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: kernels.permute_state(vt, sz, sl, order), 5, 4),
+        plain_ms=cuda_ms(lambda: kernels.permute_state_plain(
+            vt, sz, sl, order), 3, 1),
+        library_ms=cuda_ms(lambda: torch.index_select(vt, 1, order), 3, 1),
+        **bound(8 * S_ * M + 20 * M))
+
+    thr = float(CELL_THR[0])
+    pk = sl.clone()
+    k = kernels.chain_collapse(vt, sz, sl, order, skey, thr, h, None, pk)
+    dying = int((k[3] >= 0).sum())
+    errs = []
+    for w in windows:
+        pp = sl.clone()
+        sv, ss, sls = kernels.permute_state_plain(vt, sz, sl, order[w])
+        p = kernels.chain_collapse_plain(sv, ss, sls, skey[w], thr, h, None,
+                                         pp)
+        del sv, ss
+        where = f"chain_collapse at {at}, positions {w}"
+        _exact(where, [(k[1][w], p[1]), (k[2][w], p[2]), (k[3][w], p[3]),
+                       (pk[sls.long()], pp[sls.long()])])
+        if int((p[3] >= 0).sum()) == 0:
+            raise AssertionError(f"{where}: no chain merged at {thr}")
+        torch.testing.assert_close(k[0][:, w], p[0], rtol=1e-5, atol=1e-6)
+        errs.append(_max_err([(k[0][:, w], p[0])]))
+        del p, pp, sls
+    del k
+    torch.cuda.empty_cache()
+    # the fold writes the same parent entries again: timed in place
+    res["chain_collapse"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: kernels.chain_collapse(
+            vt, sz, sl, order, skey, thr, h, None, pk), 5, 4),
+        plain_ms=cuda_ms(lambda: kernels.chain_collapse_plain(
+            *kernels.permute_state_plain(vt, sz, sl, order), skey, thr, h,
+            None, sl.clone()), 2, 1),
+        library_ms=None,
+        **bound(16 * S_ * M + 44 * M + 4 * dying, 6 * S_ * M))
+    del skey, order, pk
+    torch.cuda.empty_cache()
+
+    args = (vt, sz, sl, sl.clone())
+    k = kernels.finalize(*args)
+    p = kernels.finalize_plain(*args)
+    _exact(f"finalize at {at}", zip(k[:3], p[:3]))
+    for i, (a, b) in enumerate(zip(k[3].split(1 << 24), p[3].split(1 << 24))):
+        _exact(f"finalize at {at}, centroids of block {i}", [(a, b)])
+    del k, p
+    torch.cuda.empty_cache()
+    res["finalize"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.finalize(*args), 3, 2),
+        plain_ms=cuda_ms(lambda: kernels.finalize_plain(*args), 2, 1),
+        library_ms=None, **bound(8 * S_ * M + 20 * M + 12 * M))
+    log(f"the mode-C kernels at the kostic18 cell ({at}, W = {W}, h = {h}, "
+        f"{dying} slots die at {thr}; windows {windows}): exact against "
+        f"their plain versions, chain_collapse's centroids within "
+        f"{res['chain_collapse']['max_abs_err']:.3g}")
+    log_kernels(res, at)
 
 
 def _same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
@@ -1360,7 +1493,7 @@ def check_clustering(tag: str, clust: str, counts: np.ndarray,
     counts the tmp round files (float16) that the centroids passed
     through, each of which may move a value by half a float16 ulp. Returns
     (saved clusters, the largest centroid error)."""
-    values, ids = clusterio.read_cluster_all(clust, S)
+    values, ids = clusterio.read_cluster_all(clust, counts.shape[0])
     return len(ids), check_groups(tag, values, ids, counts, v_kmers,
                                   f16_rounds)
 
@@ -1372,7 +1505,8 @@ def check_groups(tag: str, values: np.ndarray, ids, counts: np.ndarray,
     flat = ids.flat.astype(np.int64)
     if len(np.unique(flat)) != len(flat) or (flat >= counts.shape[1]).any():
         raise AssertionError(f"{tag}: a row id twice or out of range")
-    if not np.isfinite(values).all() or values.shape != (len(ids), S):
+    if (not np.isfinite(values).all()
+            or values.shape != (len(ids), counts.shape[0])):
         raise AssertionError(f"{tag}: centroids malformed")
     r = np.random.default_rng(0)
     pick = r.choice(len(ids), size=min(1000, len(ids)), replace=False)
@@ -1453,6 +1587,58 @@ def phase_full(tmp: str) -> dict:
     return dict(launches=launches, clusters=n_clusters, saved=saved,
                 cold=cold, warm=warm, counts=counts, v_kmers=v_kmers,
                 argv=argv, session_peak=session_peak)
+
+
+def phase_narrow(tmp: str) -> None:
+    """Mode C of the benchmark's kostic18 cohort through the CLI: a 10^8 x
+    18 kmer_count.bin (make_data's distribution, seed 11), -I 100 -N 0.8
+    at the upstream's --batch-thresh 1e8, which the port's batch does not
+    lower at 18 samples, so one engine session clusters the matrix
+    (kmap_size <= eff_batch: no batch pass); the profile-major scratch of
+    its kernels holds 2.4e9 words. The clustering checked as phase 5's;
+    the stage times, the session's programs and the card's peak logged."""
+    t0 = time.perf_counter()
+    counts, v = testdata.session_input(NARROW_M, NARROW_S, 11, DEV)
+    counts = counts.cpu().numpy()
+    v_kmers = write_matrix(tmp, counts)
+    log(f"narrow: data {NARROW_M} x {NARROW_S} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clust = os.path.join(tmp, "result.txt")
+    argv = ["-a", os.path.join(tmp, "l1"), "-b", os.path.join(tmp, "l2"),
+            "--only", "-M", "C", "-I", "100", "-N", "0.8", "--seed", "0",
+            "--batch-thresh", str(NARROW_M), "--work-dir", tmp, "-F", clust,
+            "-D", os.path.join(tmp, "tmp")]
+    pipeline._DEVICE_COUNTS_CACHE.clear()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV) - base
+    times = dict(pipeline.LAST_STAGES.times)
+    programs = engine.LAST_SESSION["programs"]
+    if ("C_init_clustering" in times or "C_cluster" not in times
+            or programs[0][0] != f"transform@{NARROW_M}"
+            or kernels.launches["abundance_transform"] != 1
+            or kernels.launches["finalize"] != 1):
+        raise AssertionError(f"narrow: not one session ({times}, "
+                             f"{programs[:2]}, {kernels.launches})")
+    pipeline._DEVICE_COUNTS_CACHE.clear()
+    saved, worst = check_clustering("narrow", clust, counts, v_kmers)
+    n_clusters = engine.LAST_SESSION["clusters"]
+    log(f"narrow: one session, {n_clusters} clusters, {saved} saved; "
+        f"centroids of 1000 sampled clusters within {worst:.3g} of the host "
+        f"means; wall {wall:.3f} s, device "
+        f"{engine.LAST_SESSION['device_seconds']:.3f} s, pull "
+        f"{engine.LAST_SESSION['pull_seconds']:.3f} s, "
+        f"{engine.LAST_SESSION['sorted_keys']} keys sorted; the card's peak "
+        f"{peak} B above the {base} held before = {peak / NARROW_M:.3f} a "
+        f"row")
+    log("narrow: stages " + ", ".join(f"{k} {t:.3f} s"
+                                      for k, t in times.items()))
+    log(f"narrow: programs {programs[:4]} ... {programs[-2:]}")
 
 
 def pairing_session(counts, v_kmers, thr) -> tuple:
@@ -2307,6 +2493,7 @@ def main() -> None:
     phase_kernels(FULL, exchange=False)        # logged only
     phase_finalize_cell()                      # logged only
     phase_chain_cell()                         # logged only
+    phase_narrow_cell()                        # logged only
     res.update(phase_planes())
     ended("3")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2323,6 +2510,9 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as t5c:
             phase_flush(t5c)
         ended("5c")
+        with tempfile.TemporaryDirectory() as t5e:
+            phase_narrow(t5e)
+        ended("5e")
         mode_e = phase_mode_e(t6)
         ended("6")
         pipeline._DEVICE_COUNTS_CACHE.clear()

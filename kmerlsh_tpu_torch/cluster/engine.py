@@ -69,6 +69,10 @@ from kmerlsh_tpu_torch.utils.timing import span
 #                    iteration (a chain iteration moves its state inside
 #                    kernels.chain_collapse); calls outside a session, as
 #                    pairing_merge's, are in no session's count
+#   sorted_keys    — the keys the session passed to kernels.sort_keys or its
+#                    plain twin (on the CPU too): each iteration's capacity,
+#                    compact_sort's, and finalize's two (the forest's rows
+#                    and the clusters)
 LAST_SESSION: dict = {}
 
 Hyperplanes = Callable[[int], "np.ndarray | torch.Tensor"]
@@ -267,7 +271,7 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
     first, a chain collapse (the reference's deep init pass)."""
     if merge not in ("chain", "pairing"):
         raise ValueError(f"merge = {merge!r}: chain or pairing")
-    permutes0 = _permutes
+    permutes0, sorted0 = _permutes, kernels.sorted_keys
     na = int((sizes > 0).sum())
     for it, threshold in enumerate(thr):
         if na == 0:
@@ -304,6 +308,7 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
     _record(f"finalize@{na}", sp.seconds)
     LAST_SESSION["clusters"] = na
     LAST_SESSION["permute_launches"] = _permutes - permutes0
+    LAST_SESSION["sorted_keys"] = kernels.sorted_keys - sorted0
     if defer_pull:
         return _deferred(out)
     return _pull(*out, LAST_SESSION)
@@ -394,7 +399,7 @@ def _reset_session() -> None:
     LAST_SESSION.clear()
     LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
                         pull_host_allocs=0, planes_launches=0,
-                        permute_launches=0, programs=[])
+                        permute_launches=0, sorted_keys=0, programs=[])
 
 
 def upload_counts(counts: np.ndarray, device) -> tuple[torch.Tensor, int]:

@@ -280,7 +280,14 @@ def sort_plan(M: int, bits: int, route: str | None = None) -> dict:
                 launches=1 if one else 2 + passes if sweep else 3 * passes)
 
 
+# keys passed to sort_keys or sort_keys_plain in this process, on the card
+# and the CPU alike (engine.LAST_SESSION["sorted_keys"] is a session's delta)
+sorted_keys = 0
+
+
 def sort_keys_plain(key, bits: int):
+    global sorted_keys
+    sorted_keys += key.shape[0]
     skey, order = torch.sort(key, stable=True)
     return skey, order.to(torch.int32)
 
@@ -292,12 +299,14 @@ def sort_keys(key: torch.Tensor, bits: int,
     ties in input order). The kernel reads only the low ``bits`` bits. It
     runs on ``scratch`` (uint8 on the key's card, the plan's ``scratch``
     bytes, whatever they hold) where one is given, else on a new one."""
+    global sorted_keys
     if not 1 <= bits <= 31:
         raise ValueError(f"sort_keys: bits = {bits} outside [1, 31]")
     if not _on_cuda(key):
         return sort_keys_plain(key, bits)
     _check(key, torch.int32, "key")
     M = key.shape[0]
+    sorted_keys += M
     skey = torch.empty_like(key)
     order = torch.empty_like(key)
     if M:

@@ -58,6 +58,19 @@ def test_plans_take_every_s_the_engine_took():
         kernels.permute_plan(4000, 1 << 20)
 
 
+def test_plans_at_the_cohort():
+    """The launch plans at the benchmark's kostic18 cohort, 10^8 rows x 18
+    samples, where K2's scratch of M x W words passes 2^31: the offsets
+    into it are 64-bit in every kernel that reads or writes it."""
+    S, M = 18, 10**8
+    chain = kernels.chain_plan(S, M)
+    assert (chain["W"], chain["row"], chain["P"], chain["threads"],
+            chain["blocks"]) == (24, 28, 256, 256, 390_625)
+    assert kernels.permute_plan(S, M)["W"] == 24
+    assert kernels.sort_plan(M, 31)["blocks"] == 24_415
+    assert M * chain["W"] == 2_400_000_000 > 2**31
+
+
 # S: (W, row words, P, threads, shared memory bytes)
 CHAIN_PLANS = {1: (8, 12, 512, 512, 35224), 20: (24, 28, 256, 256, 34276),
                124: (128, 132, 64, 128, 37436), 254: (256, 260, 32, 128, 37964)}

@@ -5,7 +5,7 @@ mode-C session's bytes a row.
     python3 tools/kernel_split.py [M ...]      (default 2^21 and 2^24)
     python3 tools/kernel_split.py reads
     python3 tools/kernel_split.py exchange [c ...]   (default 2^20 and 2^22)
-    python3 tools/kernel_split.py chain [M ...]      (default 2^24)
+    python3 tools/kernel_split.py chain [M[xS] ...]  (default 2^24 x 124)
     python3 tools/kernel_split.py memory
     python3 tools/kernel_split.py wrs
 
@@ -28,10 +28,12 @@ testdata.exchange_inputs): exchange_window, exchange_fold, and
 chain_collapse at the rank's base as the tree's sharded iteration calls it
 (with the local fold where the tree folds there, and without; where its
 chain_collapse takes the order, K2's move of the state included), and the
-sum of one exchange's chain_collapse and exchange_fold. ``chain`` times K2
-and the chain collapse at M x 124, the benchmark cell's width, on a
-session's first iteration (fused in this tree, K2 then K3 in a parent
-tree), beside their plain versions and bounds. ``wrs`` times
+sum of one exchange's chain_collapse and exchange_fold. ``chain`` times K2,
+the chain collapse and K9 at M x S (by default 2^24 x 124, the metahit124
+cells' shape; 100000000x18 is the kostic18 cell's) on a session's first
+iteration (fused in this tree, K2 then K3 in a parent tree), beside their
+plain versions and bounds, then K5 on the forest of a whole session of
+the cells' schedule at that shape. ``wrs`` times
 wrs_verdicts (checked against its plain version: verdicts exact, tails
 within rtol 1e-5 / atol 1e-6) on testdata.wrs_rows at 2^20 x (10 + 10)
 and 2^20 x (50 + 50) (chip_smoke.py phase 3's rows), at 2^18 x (300 +
@@ -181,16 +183,19 @@ def _fused() -> bool:
     return "order" in inspect.signature(kernels.chain_collapse).parameters
 
 
-def measure_chain(M: int) -> None:
-    """K2 and K3 where the benchmark's metahit124.cluster cell runs them
-    first: a session's first iteration at M x 124 (testdata.session_input,
-    seed 11; h of the alive count, the planes of iteration 0, 0.95, the
-    parent fold). K2 (permute_state) alone; the chain collapse as the tree
-    calls it (fused: K2's transpose and K3's staging by the order; a
-    parent tree: K2 then K3 on its sorted copy, and K3 alone); the plain
-    versions; the bounds of the functions (benchmark/harness/roofline.py's
-    counts: K2 8 S M + 20 M bytes, K3 8 S M + 24 M + 4 a dying slot)."""
-    s, dev = cs.CELL_S, cs.DEV
+def measure_chain(M: int, s: int = cs.CELL_S) -> None:
+    """K2, K3 and K9 where a benchmark cell runs them first: a session's
+    first iteration at M x s (testdata.session_input, seed 11; h of the
+    alive count, the planes of iteration 0, 0.95, the parent fold). K2
+    (permute_state) alone; the chain collapse as the tree calls it (fused:
+    K2's transpose and K3's staging by the order; a parent tree: K2 then
+    K3 on its sorted copy, and K3 alone); the plain versions; K9 on the
+    iteration's keys; the bounds of the functions
+    (benchmark/harness/roofline.py's counts: K2 8 S M + 20 M bytes, K3 8 S
+    M + 24 M + 4 a dying slot, K9 12 a key). Then K5 on the forest of a
+    whole session at M x s (the cells' schedule, seed 11), exact against
+    its plain version (chip_smoke.finalize_checked)."""
+    dev = cs.DEV
     counts, v = testdata.session_input(M, s, 11, dev)
     vt, sz = kernels.abundance_transform(counts, torch.from_numpy(v).to(dev))
     del counts
@@ -241,6 +246,32 @@ def measure_chain(M: int) -> None:
            f"{fused:.4f} / plain {k2_plain + k3_plain:.4f} (K3's "
            f"{k3_plain:.4f}) / bound {(k2_bytes + k3_bytes) * bound:.4f} ms "
            f"(K3's {k3_bytes * bound:.4f})")
+    k9 = report("sort_keys (K9, 31 bits)", M,
+                lambda: kernels.sort_keys(key, 31))
+    k9_plain = cs.cuda_ms(lambda: kernels.sort_keys_plain(key, 31), 3, 1)
+    cs.log(f"K9 at {M}: {k9:.4f} ms / plain {k9_plain:.4f} / bound "
+           f"{12 * M * bound:.4f} ms")
+    del vt, sz, sl, parent, pp, key, skey, order, sv, ss, ssl
+    torch.cuda.empty_cache()
+    counts, v = testdata.session_input(M, s, 11, dev)
+    seen, real = [], kernels.finalize
+
+    def capture(*args):
+        seen.append(args)
+        return real(*args)
+
+    kernels.finalize = capture
+    try:
+        engine.cluster_counts(counts, v, cs.CELL_THR, seed=11, n=M)
+    finally:
+        kernels.finalize = real
+    del counts
+    args, = seen
+    res, _ = cs.finalize_checked(*args)
+    cs.log(f"finalize at {M} x {s} ({args[0].shape[1]} clusters of a "
+           f"session): exact against its plain version, kernel "
+           f"{res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  bound "
+           f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
 
 
 def measure_exchange(c: int) -> None:
@@ -421,8 +452,9 @@ def main() -> None:
          "wrs": measure_wrs}[sys.argv[1]]()
         return
     if sys.argv[1:2] == ["chain"]:
-        for M in [int(a) for a in sys.argv[2:]] or [cs.FULL]:
-            measure_chain(M)
+        for shape in sys.argv[2:] or [str(cs.FULL)]:
+            M, _, s = shape.partition("x")
+            measure_chain(int(M), int(s or cs.CELL_S))
         return
     if sys.argv[1:2] == ["exchange"]:
         for c in [int(a) for a in sys.argv[2:]] or [1 << 20, 1 << 22]:
