@@ -244,8 +244,12 @@ KERNELS = {
     "draw_planes": ("kmerlsh_tpu_torch/csrc/planes.cu",
                     "kmerlsh_tpu/ops/lsh.py:27"),
 }
-MODE_C = ("abundance_transform", "lsh_keys", "sort_keys", "permute_state",
-          "chain_collapse", "finalize", "draw_planes")
+# a chain session's launches: from PR 25 its state moves into rows once
+# (to_rows) and back in its compaction (permute_rows); the sharded
+# iterations keep K2 (permute_state) in their capacity shrink
+MODE_C = ("abundance_transform", "lsh_keys", "sort_keys", "to_rows",
+          "chain_collapse", "permute_rows", "finalize", "draw_planes")
+SHARDED_C = MODE_C + ("permute_state",)
 MODE_E = ("wrs_verdicts", "key_directory", "score_reads")
 EXCHANGE = ("exchange_window", "exchange_fold")
 # Phase 7's bound on the sharded cluster count against one process's, by the
@@ -403,8 +407,10 @@ def log_kernels(res: dict, n: int) -> None:
     for name, r in res.items():
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else "none")
+        plain = (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None
+                 else "not timed")
         log(f"kernel {name} at {n}: max_abs_err {r['max_abs_err']:.3g}  "
-            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"kernel {r['ms']:.4f} ms  plain {plain}  "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library {lib}")
 
 
@@ -642,6 +648,138 @@ def phase_finalize_cell() -> None:
         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
 
 
+def lsh_keys_rows_plain_blocks(rows, sz, planes, h: int,
+                               block: int = 1 << 24):
+    """``kernels.lsh_keys_rows_plain`` on a row state whose [H_MAX + 1, M]
+    projections do not fit beside it at once: a column's projection is its
+    own sum, so the bucket keys and projections are made a block of
+    columns at a time, and the sort key's range is taken over all of them
+    (the same bits as the one call, which it is up to ``block`` rows)."""
+    M = rows.shape[0]
+    if M <= block:
+        return kernels.lsh_keys_rows_plain(rows, sz, planes, h)
+    S = planes.shape[0]
+    keys = torch.empty(M, dtype=torch.int32, device=rows.device)
+    proj = torch.empty(M, dtype=torch.float32, device=rows.device)
+    for b in range(0, M, block):
+        keys[b:b + block], proj[b:b + block] = lsh.signatures_t(
+            kernels.rows_values(rows[b:b + block], S), planes, h)
+    keys = torch.where(sz > 0, keys, lsh.BIG_KEY)
+    return lsh.combined_sort_key(keys, proj, sz, h), proj
+
+
+def rows_checked(at: str, vt, sz, sl, planes, h: int, order, skey,
+                 thr: float, col, plain, windows, atol: float) -> tuple:
+    """The kernels of a chain session's row state where a benchmark cell
+    runs them, a session's first iteration: K2's transpose into the rows
+    (``to_rows``), exact on ``windows`` of columns; K1b on the rows, bit
+    for bit its plain twin (:func:`lsh_keys_rows_plain_blocks`, on every
+    column) and K1b on the columns; K3 on the rows, bit for bit the column
+    K3's outputs ``col`` (the kernels share their arithmetic: sizes, slots,
+    values; where the two plans cut the positions otherwise, the values
+    within rounding) and held to its plain twin on ``windows`` of positions
+    (``plain(w)``: the plain collapse's outputs there, its parent and the
+    window's source slots; ints and parent entries exact, values within
+    rtol 1e-5 and ``atol``); K2's gather alone back to columns, exact
+    there. Returns (rows, the parent K3 folded into, the values' largest
+    error against the plain twin, the dying slots, the largest error of
+    ``to_rows`` and ``lsh_keys_rows`` against their plain twins) for
+    :func:`rows_timed`."""
+    S_, M = vt.shape
+    rows = kernels.to_rows(vt, sz, sl)
+    exact = dict(to_rows=max(
+        _exact(f"to_rows at {at}, columns {w}",
+               [(rows[w], kernels.to_rows_plain(vt[:, w], sz[w], sl[w]))])
+        for w in (slice(0, NARROW_WINDOW), slice(M - NARROW_WINDOW, M))))
+    kr = kernels.lsh_keys_rows(rows, sz, planes, h)
+    kp = lsh_keys_rows_plain_blocks(rows, sz, planes, h)
+    exact["lsh_keys_rows"] = _exact(
+        f"lsh_keys_rows at {at} against its plain twin", zip(kr, kp))
+    del kp
+    kc = kernels.lsh_keys(vt, sz, planes, h)
+    _exact(f"lsh_keys_rows at {at} against lsh_keys", zip(kr, kc))
+    del kr, kc
+    pr = sl.clone()
+    out, osz = kernels.chain_collapse_rows(rows, S_, order, skey, thr, h, pr)
+    _exact(f"chain_collapse_rows at {at} against chain_collapse",
+           [(osz, col[1]), (out[:, S_ + 1], col[2])])
+    # bit for bit where the two plans cut the positions alike (a chain's
+    # sums follow the sub-ranges), else within rounding
+    alike = (kernels.chain_plan(S_, M, rows=True)["P"]
+             == kernels.chain_plan(S_, M)["P"])
+    for i, a in enumerate(kernels.rows_values(out, S_)):
+        if alike:
+            _exact(f"chain_collapse_rows at {at}, value row {i}",
+                   [(a, col[0][i])])
+        else:
+            torch.testing.assert_close(a, col[0][i], rtol=1e-5, atol=atol)
+    dying = int((col[1] == 0).sum() - (sz == 0).sum())
+    errs = []
+    for w in windows:
+        p, pp, wsl = plain(w)
+        wsl = wsl.long()
+        where = f"chain_collapse_rows at {at}, positions {w}"
+        _exact(where, [(osz[w], p[1]), (out[w, S_ + 1], p[2]),
+                       (pr[wsl], pp[wsl])])
+        for a, b in zip(kernels.rows_values(out[w], S_), p[0]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+        errs.append(_max_err(zip(kernels.rows_values(out[w], S_), p[0])))
+        del p, pp
+    del out, osz
+    for w in windows:   # K2's gather back, on a window's first positions
+        o = order[w][:NARROW_WINDOW]
+        _exact(f"permute_rows at {at}, positions {w}",
+               zip(kernels.permute_rows(rows, S_, o),
+                   kernels.permute_rows_plain(rows, S_, o)))
+    return rows, pr, max(errs), dying, exact
+
+
+def rows_timed(at: str, vt, sz, sl, planes, h: int, order, skey, thr: float,
+               rows, pr, err: float, dying: int, exact: dict) -> dict:
+    """The row state's kernels of :func:`rows_checked` timed beside the
+    bound of each one's function (the row state's own bytes and the column
+    kernels' times logged beside them), and the plain twins of ``to_rows``
+    and ``lsh_keys_rows`` as :func:`rows_checked` ran them; K3's on rows,
+    the column pair's plain with a layout change, is not timed here (the
+    memory holds no second state beside the plain pair's temporaries)."""
+    S_, M = vt.shape
+    W = kernels.row_words(S_)
+    res = {}
+    res["to_rows"] = dict(
+        max_abs_err=exact["to_rows"],
+        ms=cuda_ms(lambda: kernels.to_rows(vt, sz, sl), 5, 4),
+        plain_ms=cuda_ms(lambda: kernels.to_rows_plain(vt, sz, sl), 3, 1),
+        library_ms=None, **bound(4 * S_ * M + 8 * M + 4 * W * M))
+    res["lsh_keys_rows"] = dict(
+        max_abs_err=exact["lsh_keys_rows"],
+        ms=cuda_ms(lambda: kernels.lsh_keys_rows(rows, sz, planes, h), 5, 4),
+        plain_ms=cuda_ms(lambda: lsh_keys_rows_plain_blocks(
+            rows, sz, planes, h), 3, 1),
+        library_ms=None,
+        **bound(4 * S_ * M + 4 * M + 4 * S_ * (h + 1) + 8 * M,
+                2 * S_ * (h + 1) * M))
+    # the fold writes the same parent entries again: timed in place
+    res["chain_collapse_rows"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: kernels.chain_collapse_rows(
+            rows, S_, order, skey, thr, h, pr), 5, 4),
+        plain_ms=None, library_ms=None,
+        **bound(8 * S_ * M + 24 * M + 4 * dying, 8 * S_ * M))
+    col_ms = {
+        "lsh_keys": cuda_ms(lambda: kernels.lsh_keys(vt, sz, planes, h), 5, 4),
+        "chain_collapse": cuda_ms(lambda: kernels.chain_collapse(
+            vt, sz, sl, order, skey, thr, h, None, sl.clone(),
+            merged=False), 5, 4)}
+    log(f"the row state at {at} (W = {W}, {4 * W * M} bytes of rows; K3 on "
+        f"rows moves {8 * W * M + 12 * M + 8 * dying} bytes, its function "
+        f"{8 * S_ * M + 24 * M + 4 * dying}): to_rows, lsh_keys_rows (on "
+        f"every column) and chain_collapse_rows exact against their plain "
+        f"twins and the column kernels; on columns lsh_keys {col_ms['lsh_keys']:.4f} ms, "
+        f"chain_collapse (its transpose too) {col_ms['chain_collapse']:.4f} "
+        f"ms")
+    return res
+
+
 def phase_chain_cell() -> None:
     """chain_collapse where the benchmark's metahit124.cluster cell runs it,
     at the launch plan of the cell's width: a session's first iteration at
@@ -650,13 +788,14 @@ def phase_chain_cell() -> None:
     Held to K2's plain version followed by the plain collapse: sizes,
     slots, merged_into and parent exact, centroids within rtol 1e-5; both
     timed, beside the bound of K2's and K3's functions (8 S M + 20 M and
-    8 S M + 24 M + 4 a dying slot bytes)."""
+    8 S M + 24 M + 4 a dying slot bytes). Then the row state's kernels of
+    :func:`rows_checked`, held to the same plain outputs, and timed."""
     counts, v = testdata.session_input(FULL, CELL_S, 11, DEV)
     vt, sz = kernels.abundance_transform(counts, torch.from_numpy(v).to(DEV))
     del counts
     h = engine._active_h_of(int((sz > 0).sum()))
-    key, _ = kernels.lsh_keys(
-        vt, sz, rng.draw_hyperplanes(11, 0, CELL_S).to(DEV), h)
+    planes = rng.draw_hyperplanes(11, 0, CELL_S).to(DEV)
+    key, _ = kernels.lsh_keys(vt, sz, planes, h)
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     del key
     sl = torch.arange(FULL, dtype=torch.int32, device=DEV)
@@ -678,7 +817,18 @@ def phase_chain_cell() -> None:
     for a, b in zip(k[0], p[0]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
     err = _max_err(zip(k[0], p[0]))
-    del k, p
+    del k
+    col = kernels.chain_collapse(vt, sz, sl, order, skey, thr, h, None, None,
+                                 merged=False)
+    at = f"{FULL} x {CELL_S}"
+    checked = rows_checked(at, vt, sz, sl, planes, h, order, skey, thr, col,
+                           lambda w: (p, pp, sl), [slice(None)], 0.0)
+    del p, col
+    torch.cuda.empty_cache()
+    row_res = rows_timed(at, vt, sz, sl, planes, h, order, skey, thr,
+                         *checked)
+    del checked
+    torch.cuda.empty_cache()
     # the fold writes the same parent entries again: timed in place
     res = dict(max_abs_err=err,
                ms=cuda_ms(lambda: kernels.chain_collapse(
@@ -691,7 +841,7 @@ def phase_chain_cell() -> None:
                        6 * CELL_S * FULL))
     log(f"chain_collapse at the cell ({FULL} x {CELL_S}, h = {h}, {dying} "
         f"slots die at {thr}): exact against K2's and K3's plain versions")
-    log_kernels({"chain_collapse": res}, f"{FULL} x {CELL_S}")
+    log_kernels({"chain_collapse": res, **row_res}, f"{FULL} x {CELL_S}")
 
 
 NARROW_WINDOW = 1 << 18   # positions of a compared window, a multiple of
@@ -717,7 +867,9 @@ def phase_narrow_cell() -> None:
     256), each held to its plain twin on the windows of _narrow_windows,
     whose source rows lie past word 2^31 (ints and the parent entries of
     the window's slots exact, centroids within rtol 1e-5 and atol 1e-6, as
-    tests/test_torch_narrow_cohort.py holds them); finalize on the
+    tests/test_torch_narrow_cohort.py holds them); the row state's kernels
+    of :func:`rows_checked` (rows of 20 words, past byte 2^32 on the
+    windows), held so too; finalize on the
     transformed state as 10^8 clusters of one row, its columns through a
     scratch of 10^8 x 24 words, exact. Each timed beside its bound, its
     plain version at full size."""
@@ -729,8 +881,8 @@ def phase_narrow_cell() -> None:
     if int((sz > 0).sum()) != M:
         raise AssertionError(f"narrow cell: not every row of {at} kept")
     h = engine._active_h_of(M)
-    key, _ = kernels.lsh_keys(
-        vt, sz, rng.draw_hyperplanes(11, 0, S_).to(DEV), h)
+    planes = rng.draw_hyperplanes(11, 0, S_).to(DEV)
+    key, _ = kernels.lsh_keys(vt, sz, planes, h)
     res = {"sort_keys": sort_case(key, lsh.KEY_BITS, f"lsh_keys at {at}")}
     skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
     del key
@@ -788,7 +940,21 @@ def phase_narrow_cell() -> None:
             None, sl.clone()), 2, 1),
         library_ms=None,
         **bound(16 * S_ * M + 44 * M + 4 * dying, 6 * S_ * M))
-    del skey, order, pk
+
+    def plain(w):
+        pp = sl.clone()
+        sv, ss, sls = kernels.permute_state_plain(vt, sz, sl, order[w])
+        return (kernels.chain_collapse_plain(sv, ss, sls, skey[w], thr, h,
+                                             None, pp), pp, sls)
+    col = kernels.chain_collapse(vt, sz, sl, order, skey, thr, h, None, None,
+                                 merged=False)
+    checked = rows_checked(at, vt, sz, sl, planes, h, order, skey, thr, col,
+                           plain, windows, 1e-6)
+    del col
+    torch.cuda.empty_cache()
+    res.update(rows_timed(at, vt, sz, sl, planes, h, order, skey, thr,
+                          *checked))
+    del checked, skey, order, pk
     torch.cuda.empty_cache()
 
     args = (vt, sz, sl, sl.clone())
@@ -1559,8 +1725,8 @@ def phase_full(tmp: str) -> dict:
     # the cold run's own peak: above what was allocated before it (and
     # before this script's copy of its forest, made at its end)
     session_peak = torch.cuda.max_memory_allocated(DEV) - base
-    launches = {k: kernels.launches[k] for k in MODE_C}
-    missing = [k for k, n in launches.items() if n == 0]
+    launches = dict(kernels.launches)   # permute_state's too, 0 here
+    missing = [k for k in MODE_C if launches[k] == 0]
     if missing:
         raise AssertionError(f"mode C never launched {missing}")
     cold_device = engine.LAST_SESSION["device_seconds"]
@@ -2355,7 +2521,7 @@ def phase_sharded(full: dict, full_dir: str, mode_e: dict,
     recs = run_ranks("C", argv, full_dir)
     log(f"sharded C: rank 0's programs {recs[0]['programs']}")
     for r, rec in enumerate(recs):
-        missing = [k for k in MODE_C + EXCHANGE if rec["launches"][k] == 0]
+        missing = [k for k in SHARDED_C + EXCHANGE if rec["launches"][k] == 0]
         if missing:
             raise AssertionError(f"sharded C: rank {r} never launched "
                                  f"{missing}")
@@ -2379,8 +2545,8 @@ def phase_sharded(full: dict, full_dir: str, mode_e: dict,
         f"{saved / full['saved'] - 1:+.2%}, {recs[0]['tail']} tail); "
         f"centroids of 1000 sampled "
         f"clusters within {worst:.3g} of the host means; launches per rank "
-        f"{[[rec['launches'][k] for k in MODE_C + EXCHANGE] for rec in recs]}"
-        f" ({', '.join(MODE_C + EXCHANGE)}; four ranks share one card: not "
+        f"{[[rec['launches'][k] for k in SHARDED_C + EXCHANGE] for rec in recs]}"
+        f" ({', '.join(SHARDED_C + EXCHANGE)}; four ranks share one card: not "
         f"a four-card speed)")
 
     pa, pb = (os.path.join(e_dir, f"sharded_{g}") for g in "AB")
@@ -2420,7 +2586,7 @@ def phase_sharded_out_of_core(full: dict, ooc: dict, sharded: dict,
     argv += ["--batch-thresh", str(OOC_BATCH)]
     recs = run_ranks("C_ooc", argv, full_dir)
     for r, rec in enumerate(recs):
-        missing = [k for k in MODE_C + EXCHANGE if rec["launches"][k] == 0]
+        missing = [k for k in SHARDED_C + EXCHANGE if rec["launches"][k] == 0]
         if missing:
             raise AssertionError(f"sharded out of core: rank {r} never "
                                  f"launched {missing}")
@@ -2462,7 +2628,7 @@ def phase_sharded_out_of_core(full: dict, ooc: dict, sharded: dict,
         f"{saved / ooc['saved'] - 1:+.2%}; phase 7: {sharded['clusters']}; "
         f"phase 5: {full['clusters']}); centroids of 1000 sampled clusters "
         f"within {worst:.3g} of the host means; launches per rank "
-        f"{[[rec['launches'][k] for k in MODE_C + EXCHANGE] for rec in recs]}"
+        f"{[[rec['launches'][k] for k in SHARDED_C + EXCHANGE] for rec in recs]}"
         f" (four ranks share one card: not a four-card speed)")
 
 

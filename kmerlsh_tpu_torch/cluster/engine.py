@@ -8,14 +8,22 @@ rows (int32 [cap0]). Each iteration, run eagerly one at a time:
   1. ``lsh_keys`` kernel: projections on the iteration's hyperplanes, the h
      bucket bits and the secondary projection quantized into one int32 key;
   2. the ``sort_keys`` kernel's stable sort of the key;
-  3. ``chain_collapse`` kernel: the state moves into sorted order (K2's
-     transpose, then rows staged by the order) and neighbour chains
-     collapse onto their last position; the dying slots are folded into
-     the parent forest in place. With ``merge="pairing"`` the
-     ``permute_state`` kernel moves the state into sorted order and the
-     ``pairing_rounds`` kernel runs R rounds of adjacent rank pairs within
-     each bucket instead (the reference keeps it for comparison); with
-     ``deep_init`` the first iteration is still a chain collapse.
+  3. ``chain_collapse`` kernel: the state moves into sorted order (its
+     rows staged by the order) and neighbour chains collapse onto their
+     last position; the dying slots are folded into the parent forest in
+     place. With ``merge="pairing"`` the ``permute_state`` kernel moves the
+     state into sorted order and the ``pairing_rounds`` kernel runs R
+     rounds of adjacent rank pairs within each bucket instead (the
+     reference keeps it for comparison); with ``deep_init`` the first
+     iteration is still a chain collapse.
+
+A chain session (``merge="chain"``) carries its state between iterations
+as rows (``kernels.to_rows``: row m column m's values, size and slot), made
+once after the transform: ``lsh_keys_rows`` reads them and
+``chain_collapse_rows`` stages them by the order and writes the collapsed
+rows, so no iteration transposes the state. Its compaction takes them back
+to [S, M] columns. A pairing session, the sharded path and
+:func:`chain_collapse` keep the [S, M] columns throughout.
 
 After every iteration the host reads one int, the alive count: the sort put
 every dead column behind the alive ones, so the next iteration runs on the
@@ -64,15 +72,20 @@ from kmerlsh_tpu_torch.utils.timing import span
 #   clusters       — the session's cluster count
 #   planes_launches — the session's draws of its planes on the card (1 on a
 #                    card without a hyperplanes hook, else 0)
-#   permute_launches — the session's calls of kernels.permute_state (on the
-#                    CPU too): compact_sort's one and one a pairing
-#                    iteration (a chain iteration moves its state inside
+#   permute_launches — the session's K2 gathers, calls of
+#                    kernels.permute_state or permute_rows (on the CPU too):
+#                    the compaction's one and one a pairing iteration (a
+#                    chain iteration moves its state inside
 #                    kernels.chain_collapse); calls outside a session, as
 #                    pairing_merge's, are in no session's count
 #   sorted_keys    — the keys the session passed to kernels.sort_keys or its
 #                    plain twin (on the CPU too): each iteration's capacity,
 #                    compact_sort's, and finalize's two (the forest's rows
 #                    and the clusters)
+#   state_transposes — the session's changes of state layout (on the CPU
+#                    too): a chain session 2 whatever its iterations (into
+#                    rows after the transform, back to columns in its
+#                    compaction), a pairing session 0
 LAST_SESSION: dict = {}
 
 Hyperplanes = Callable[[int], "np.ndarray | torch.Tensor"]
@@ -107,7 +120,7 @@ def chain_collapse(values_t, sizes, keys, proj, threshold: float,
     return new_vt, new_size, new_mi, new_scs
 
 
-_permutes = 0   # calls of _permute in this process
+_permutes = 0   # K2 gathers (_permute, compact_rows) in this process
 
 
 def _permute(values_t, sizes, slots, order):
@@ -204,12 +217,36 @@ def _one_iteration(values_t, sizes, slots, parent, hyperplanes, threshold,
                                   threshold, h, None, parent, base, merged)
 
 
+def _row_iteration(rows, sizes, s: int, parent, hyperplanes, threshold,
+                   h: int):
+    """One chain iteration on a chain session's row state (rows int32
+    [M, W] of ``s`` values, sizes int32 [M]): (rows, sizes) in sorted
+    order, what :func:`_one_iteration` gives as columns, with the merges
+    folded into ``parent`` in place."""
+    key, _ = kernels.lsh_keys_rows(rows, sizes, hyperplanes, h)
+    skey, order = kernels.sort_keys(key, lsh.KEY_BITS)
+    del key   # not held into the collapse's peak
+    return kernels.chain_collapse_rows(rows, s, order, skey, threshold, h,
+                                       parent)
+
+
 def compact_sort(values_t, sizes, slots):
     """Alive-first stable compaction: a stable sort on ``sizes == 0`` and
     the same permute as an iteration."""
     dead = (sizes == 0).to(torch.int32)
     order = kernels.sort_keys(dead, 1)[1]
     return _permute(values_t, sizes, slots, order)
+
+
+def compact_rows(rows, sizes, s: int):
+    """:func:`compact_sort` of a row state (``s`` values a row, sizes int32
+    [M] as a column): the same sort, then K2's gather alone back to [S, M]
+    columns (values, sizes, slots), counted in ``_permutes``."""
+    global _permutes
+    dead = (sizes == 0).to(torch.int32)
+    order = kernels.sort_keys(dead, 1)[1]
+    _permutes += 1
+    return kernels.permute_rows(rows, s, order)
 
 
 def _finalize_grouped(values_t, sizes, slots, parent):
@@ -268,17 +305,26 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
     (centroids [K, S], sizes [K], members), or with ``defer_pull`` the
     (finish, stats) of :func:`_deferred`. With ``merge="pairing"`` every
     iteration runs ``rounds`` pairing rounds, but with ``deep_init`` the
-    first, a chain collapse (the reference's deep init pass)."""
+    first, a chain collapse (the reference's deep init pass). A chain
+    session carries its state as rows from here to its compaction
+    (``kernels.to_rows``, :func:`_row_iteration`, :func:`compact_rows`)."""
     if merge not in ("chain", "pairing"):
         raise ValueError(f"merge = {merge!r}: chain or pairing")
     permutes0, sorted0 = _permutes, kernels.sorted_keys
+    s = values_t.shape[0]
     na = int((sizes > 0).sum())
+    rows = None   # a chain session's row state, in place of the columns
+    transposes = 0   # the session's changes of the state's layout
+    if merge == "chain":
+        rows = kernels.to_rows(values_t, sizes, slots)
+        values_t = slots = None
+        transposes += 1
     for it, threshold in enumerate(thr):
         if na == 0:
             break
         with span("iter.h"):
             h = _active_h_of(na)
-        cap = values_t.shape[1]
+        cap = sizes.shape[0]
         kind = "chain" if deep_init and it == 0 else merge
         with span("iter") as sp:
             with span("iter.planes"):
@@ -286,21 +332,33 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
             with span("iter.enqueue"):
                 # merged_into is not needed here, and not held into the
                 # next iteration's peak
-                values_t, sizes, slots, _ = _one_iteration(
-                    values_t, sizes, slots, parent, p, float(threshold), h,
-                    kind, rounds, merged=False)
+                if rows is not None:
+                    rows, sizes = _row_iteration(rows, sizes, s, parent, p,
+                                                 float(threshold), h)
+                else:
+                    values_t, sizes, slots, _ = _one_iteration(
+                        values_t, sizes, slots, parent, p, float(threshold),
+                        h, kind, rounds, merged=False)
             with span("iter.wait"):                # the one read per iteration
                 na_next = int((sizes > 0).sum())
         _record(f"iter[{it}]@{cap}", sp.seconds)
         # alive columns now all sit before na: the rest is dead tail
-        values_t, sizes, slots = values_t[:, :na], sizes[:na], slots[:na]
+        if rows is not None:
+            rows, sizes = rows[:na], sizes[:na]
+        else:
+            values_t, sizes, slots = values_t[:, :na], sizes[:na], slots[:na]
         na = na_next
         if verbose:
             print(f"[torch] iter {it + 1}: {na} clusters")
 
     with span("finalize") as sp:
         with span("finalize.enqueue"):
-            values_t, sizes, slots = compact_sort(values_t, sizes, slots)
+            if rows is not None:
+                values_t, sizes, slots = compact_rows(rows, sizes, s)
+                transposes += 1
+                del rows   # not held through finalize
+            else:
+                values_t, sizes, slots = compact_sort(values_t, sizes, slots)
             out = _finalize_grouped(values_t[:, :na], sizes[:na], slots[:na],
                                     parent)
         with span("finalize.wait"):
@@ -309,6 +367,7 @@ def _drive_session(values_t, sizes, slots, parent, thr, planes, verbose,
     LAST_SESSION["clusters"] = na
     LAST_SESSION["permute_launches"] = _permutes - permutes0
     LAST_SESSION["sorted_keys"] = kernels.sorted_keys - sorted0
+    LAST_SESSION["state_transposes"] = transposes
     if defer_pull:
         return _deferred(out)
     return _pull(*out, LAST_SESSION)
@@ -399,7 +458,8 @@ def _reset_session() -> None:
     LAST_SESSION.clear()
     LAST_SESSION.update(device_seconds=0.0, pull_seconds=0.0, pull_bytes=0,
                         pull_host_allocs=0, planes_launches=0,
-                        permute_launches=0, sorted_keys=0, programs=[])
+                        permute_launches=0, sorted_keys=0,
+                        state_transposes=0, programs=[])
 
 
 def upload_counts(counts: np.ndarray, device) -> tuple[torch.Tensor, int]:

@@ -1,5 +1,6 @@
 // K3 (with the K4 parent fold): chain collapse of the state in sort order,
-// with K2's gather folded into its staging.
+// with K2's gather folded into its staging, on columns or on a chain
+// session's row state.
 //
 // Replaces kmerlsh_tpu/cluster/engine.py:335 chain_collapse (with _seg_scan,
 // _rev_fill and segment.segment_starts), the payload move of its sort
@@ -17,16 +18,35 @@
 // base + c0_loc), so that the local phase's fold
 // (kmerlsh_tpu/parallel/dist.py:112-113) runs here too.
 //
-// The entry takes the state as the iteration holds it (values [S, M], whose
-// rows may be strided, sizes and slots, in input order), K9's order and
-// sorted keys, and returns the collapsed state in sorted position order.
-// Two launches:
-//   (a) K2's transpose (csrc/permute_state.cu kl_permute_to_scratch): the
-//       state into the profile-major scratch [M, W], each column's S values,
-//       size and slot in a row of W words (whole 32-byte sectors);
-//   (b) kl_chain_kernel, whose blocks stage the scratch rows of their
-//       positions by order[pos]. No sorted copy of the state is written and
-//       read again, as K2's gather and the earlier K3 did.
+// Two entries share the kernel (kl_chain_kernel<ROWS>, the staging, the
+// arithmetic, the look-back and the parent fold alike; only the source of
+// the staged rows and the writes differ):
+//   * kl_chain_collapse, the [S, M] contract (the sharded path, pairing
+//     sessions' deep init, engine.chain_collapse): the state as the
+//     iteration holds it (values [S, M], whose rows may be strided, sizes
+//     and slots, in input order), K9's order and sorted keys in; the
+//     collapsed state in sorted position order out as columns. Two
+//     launches: (a) K2's transpose (csrc/permute_state.cu
+//     kl_permute_to_scratch) of the state into the profile-major scratch
+//     [M, W], each column's S values, size and slot in a row of W words;
+//     (b) kl_chain_kernel<false>, whose blocks stage the scratch rows of
+//     their positions by order[pos].
+//   * kl_chain_collapse_rows, a chain session's iteration (cluster/engine.py
+//     _drive_session): the session carries its state between iterations as
+//     those rows (K2's transpose once a session, kl_state_rows; W the least
+//     multiple of 4 words at or above S + 2), so one launch,
+//     kl_chain_kernel<true>: the blocks stage their positions' rows of the
+//     state by order[pos] as (b) does, and write the collapsed rows in
+//     sorted position order, a block's P rows one contiguous run of P * W
+//     words in 16-byte stores, and the sizes as a column (the host's alive
+//     count; K1b reads them too). Why: at 2^24 x 124 the transpose reads
+//     the 8.3 GB state and writes 8.6 GB of scratch every iteration, ~26%
+//     of a job's kernel time (PERF.md), for nothing but this staging; on
+//     rows the kernel moves the state once, read by its rows and written
+//     by its rows. Its bytes: the M staged rows (whole 32-byte sectors,
+//     4 W bytes or a little more), the M rows written (4 W bytes), the
+//     order, keys and sizes (12 M), and a parent entry and a slot word a
+//     dying slot.
 //
 // Bound on the H100: device-memory bandwidth (the state read once by (a),
 // its scratch written by (a) and read once by (b), the values written once,
@@ -38,11 +58,12 @@
 //     P stage, scan and write; the SM holds more warps than positions).
 //   * The block stages the scratch rows of its P positions and one halo
 //     position on each side, row by row in 16-byte cp.async pieces (a warp
-//     takes 512 contiguous bytes of a row), into rows of W + 4 words:
-//     16-byte aligned with (W + 4) / 4 odd, so the 16-byte reads of eight
-//     neighbouring rows (a quarter warp) cover all 32 banks, and 32 lanes
-//     reading one word of 32 neighbouring rows reach 8 distinct banks
-//     (only the sizes and slots are read so, a few times a position).
+//     takes 512 contiguous bytes of a row), into rows of kl_stage_ld(W)
+//     words: 16-byte aligned with an odd number of 16-byte pieces, so the
+//     16-byte reads of eight neighbouring rows (a quarter warp) cover all
+//     32 banks, and 32 lanes reading one word of 32 neighbouring rows reach
+//     8 distinct banks (only the sizes and slots are read so, a few times a
+//     position).
 //   * Links: thread i sums the cosine of positions i - 1 and i over s = 0,
 //     1, ... (16-byte reads of both rows) with separately rounded
 //     operations, as the plain version does, so the links agree bit for bit.
@@ -75,8 +96,12 @@
 //     the flag.
 //   * Writes: the values in sorted order, a thread per (position, 4 rows),
 //     neighbouring threads on neighbouring positions (each store of a warp
-//     128 contiguous bytes). The last member of a chain writes the slot at
-//     the head position and the parent entry, wherever the head lies. These
+//     128 contiguous bytes); on rows a thread per 16-byte piece of the
+//     block's contiguous run (each store of a warp 512 contiguous bytes),
+//     the piece that holds the slot word of a head that is not last in
+//     4-byte stores that leave that word out. The last member of a chain
+//     writes the slot at the head position and the parent entry, wherever
+//     the head lies. These
 //     scattered 4-byte writes are what the kernel spends most beyond a
 //     copy of its bytes: a parent line that the stream of values and int
 //     columns evicts from L2 between two writes costs a read-modify-write
@@ -127,6 +152,14 @@ __device__ __forceinline__ void kl_st_pol(float* p, float v,
                : "memory");
 }
 
+__device__ __forceinline__ void kl_st4_pol(float* p, float4 v,
+                                           unsigned long long pol) {
+  asm volatile(
+      "st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(p),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "l"(pol)
+      : "memory");
+}
+
 __device__ __forceinline__ void kl_st_pol(int* p, int v,
                                           unsigned long long pol) {
   asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;\n" ::"l"(p),
@@ -148,7 +181,8 @@ __device__ __forceinline__ int kl_seg_reach(unsigned heads, int lane) {
 }
 
 // Shared memory of one block, in 4-byte words (kernels.chain_plan computes
-// the same): the row tile [P + 2][W + 4] (row r: position base - 1 + r),
+// the same): the row tile [P + 2][kl_stage_ld(W)] (row r: position
+// base - 1 + r),
 // keys [P + 2], links [P + 1], the alive sizes as floats [P], the warp-local
 // inclusive size sums [P], the warps' value totals [S][P / 32] (first the
 // staged rows' sources, P + 2 ints), their size totals, latest heads, head
@@ -157,10 +191,15 @@ static inline long long kl_chain_words(long long S, long long W,
                                        long long P) {
   const long long nw = P / 32;
   const long long scan = S * nw > P + 2 ? S * nw : P + 2;
-  return (P + 2) * (W + 4) + (P + 2) + (P + 1) + 2 * P + scan + 4 * nw + S +
-         8;
+  return (P + 2) * kl_stage_ld(W) + (P + 2) + (P + 1) + 2 * P + scan + 4 * nw +
+         S + 8;
 }
 
+// ROWS false: the outputs in sorted position order as columns (values
+// [S, M], sizes, slots, merged_into). ROWS true: out_v holds rows [M, W] in
+// the layout the block staged (values, size, slot, pads), and out_slot is
+// not written; sizes and merged_into as columns.
+template <bool ROWS>
 __global__ void __launch_bounds__(KL_CHAIN_MAX_T) kl_chain_kernel(
     const unsigned* __restrict__ scr, int W, const int* __restrict__ order,
     int S, long long M, int P, const int* __restrict__ skey,
@@ -171,10 +210,10 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_T) kl_chain_kernel(
     int* agg) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x, T = blockDim.x, lane = t & 31, warp = t >> 5;
-  const int nw = P >> 5, L = W + 4, Sq = S >> 2, Q = (S + 3) >> 2;
+  const int nw = P >> 5, L = kl_stage_ld(W), Sq = S >> 2, Q = (S + 3) >> 2;
   const int scan = max(S * nw, P + 2);
   float* tile = (float*)smem;                      // [P + 2][L]
-  const int* itile = (const int*)tile;
+  int* itile = (int*)tile;
   int* ckey = (int*)(tile + (long long)(P + 2) * L) + 1;   // [-1, P]
   int* clink = ckey + P + 1;                       // [P + 1]
   float* cw = (float*)(clink + P + 1);             // [P]
@@ -366,60 +405,102 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_T) kl_chain_kernel(
 
   // 6. the writes. The positions [lo, hi) of the block's first n, open or
   //    not ("open": before the block's first head, so the chain enters from
-  //    the left and the carry completes it): every value, by all threads,
-  //    a thread per (position, 4 rows) with neighbouring threads on
-  //    neighbouring positions; a last position's value is its chain's sum
-  //    (the warp-local sum, the warps' prefix where its warp holds no head
-  //    before it, the carry where it is open) over the chain's size
+  //    the left and the carry completes it). A last position's value is its
+  //    chain's sum (the warp-local sum, the warps' prefix where its warp
+  //    holds no head before it, the carry where it is open) over the
+  //    chain's size. Columns: every value, by all threads, a thread per
+  //    (position, 4 rows) with neighbouring threads on neighbouring
+  //    positions. Rows: the n rows are n * W contiguous words, a thread per
+  //    16-byte piece with neighbouring threads on neighbouring pieces, the
+  //    size and slot from the tile (emit_ints puts them there first); a
+  //    head that is not last leaves its slot word to its chain's last
+  //    member, which may lie in another block.
   const int h0 = misc[4];
-  auto emit_values = [&](int lo, int hi, bool open) {
-    const int span = hi - lo;
-    for (int e = t; e < span * Q; e += T) {
-      const int q = e / span, j = lo + (e - q * span);
-      const int g = j >> 5, lj = j & 31;
-      const float4 x4 = *(const float4*)(tile + (long long)(j + 1) * L + 4 * q);
-      float x[4] = {x4.x, x4.y, x4.z, x4.w};
-      const int nk = min(4, S - 4 * q);
-      if ((wl[g] >> lj) & 1) {
-        const bool into = (wh[g] & (KL_FULL >> (31 - lj))) == 0;
-        const int Wc = (into ? ww[g] : 0) + cwin[j] + (open ? misc[3] : 0);
-        const float rw = __frcp_rn((float)max(Wc, 1));
+  auto last_sum = [&](float4 x4, int j, int q, bool open) -> float4 {
+    const int g = j >> 5, lj = j & 31;
+    float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    const int nk = min(4, S - 4 * q);
+    if (nk > 0 && (wl[g] >> lj) & 1) {
+      const bool into = (wh[g] & (KL_FULL >> (31 - lj))) == 0;
+      const int Wc = (into ? ww[g] : 0) + cwin[j] + (open ? misc[3] : 0);
+      const float rw = __frcp_rn((float)max(Wc, 1));
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (u < nk) {
-            const int s = 4 * q + u;
-            float y = x[u];
-            if (into) y = __fadd_rn(wv[(long long)s * nw + g], y);
-            if (open) y = __fadd_rn(carry_v[s], y);
-            x[u] = __fmul_rn(y, rw);
-          }
+      for (int u = 0; u < 4; ++u) {
+        if (u < nk) {
+          const int s = 4 * q + u;
+          float y = x[u];
+          if (into) y = __fadd_rn(wv[(long long)s * nw + g], y);
+          if (open) y = __fadd_rn(carry_v[s], y);
+          x[u] = __fmul_rn(y, rw);
         }
       }
-      float* o = out_v + (long long)(4 * q) * M + base + j;
+    }
+    return make_float4(x[0], x[1], x[2], x[3]);
+  };
+  auto emit_values = [&](int lo, int hi, bool open) {
+    const int span = hi - lo;
+    if constexpr (ROWS) {
+      const int QW = W >> 2, qslot = (S + 1) >> 2;
+      float* o = out_v + (base + lo) * W;
+      for (int e = t; e < span * QW; e += T) {
+        const int jj = e / QW, q = e - jj * QW, j = lo + jj;
+        const float4 x4 = last_sum(
+            *(const float4*)(tile + (long long)(j + 1) * L + 4 * q), j, q,
+            open);
+        const int g = j >> 5, lj = j & 31;
+        if (q == qslot && ((wh[g] & ~wl[g]) >> lj) & 1) {
+          const float x[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (u < nk) kl_st_pol(o + (long long)u * M, x[u], stream);
+          for (int u = 0; u < 4; ++u)
+            if (4 * q + u != S + 1)
+              kl_st_pol(o + (long long)jj * W + 4 * q + u, x[u], stream);
+        } else {
+          kl_st4_pol(o + (long long)jj * W + 4 * q, x4, stream);
+        }
+      }
+    } else {
+      for (int e = t; e < span * Q; e += T) {
+        const int q = e / span, j = lo + (e - q * span);
+        const float4 x4 = last_sum(
+            *(const float4*)(tile + (long long)(j + 1) * L + 4 * q), j, q,
+            open);
+        const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+        const int nk = min(4, S - 4 * q);
+        float* o = out_v + (long long)(4 * q) * M + base + j;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nk) kl_st_pol(o + (long long)u * M, x[u], stream);
+      }
     }
   };
-  //    the int columns and the parent entries, by position i's thread
+  //    the int columns and the parent entries, by position i's thread (on
+  //    rows also its size and slot in the tile, for emit_values)
   auto emit_ints = [&](int Wc, long long habs, int hslot) {
     const long long p = base + i;
     const int slot = slot_at(i);
-    __stcs(out_size + p, last ? Wc : (alive ? 0 : sz));
+    const int size = last ? Wc : (alive ? 0 : sz);
+    __stcs(out_size + p, size);
     if (out_mi)
       __stcs(out_mi + p, (alive && !last) ? hslot
                                         : (smi ? smi[__ldcs(order + p)] : -1));
+    if constexpr (ROWS) {
+      itile[(long long)(i + 1) * L + S] = size;
+      if (last) itile[(long long)(i + 1) * L + S + 1] = hslot;
+    }
     if (last) {
-      __stcs(out_slot + p, hslot);
+      if constexpr (!ROWS) __stcs(out_slot + p, hslot);
       if (habs != p) {   // the last member's slot moves to the head and dies
-        out_slot[habs] = slot;
+        if constexpr (ROWS)
+          ((int*)out_v)[habs * W + S + 1] = slot;
+        else
+          out_slot[habs] = slot;
         if (parent) kl_st_pol(parent + ((long long)slot - pbase), hslot, keep);
       }
     } else if (link) {
-      __stcs(out_slot + p, slot);
+      if constexpr (!ROWS) __stcs(out_slot + p, slot);
       if (parent) kl_st_pol(parent + ((long long)slot - pbase), hslot, keep);
     } else if (!alive) {
-      __stcs(out_slot + p, slot);
+      if constexpr (!ROWS) __stcs(out_slot + p, slot);
     }   // a head that is not last: written by its chain's last member
   };
   int hloc = hl >= 0 ? warp * 32 + hl : -1;
@@ -430,6 +511,10 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_T) kl_chain_kernel(
   const bool open = hloc < 0;   // i < h0
   const int w_in = hl >= 0 ? w : (pos ? ww[warp] : 0) + w;
   const bool mine = pos && i < n;
+  if constexpr (ROWS) {   // the rows from the first head on take the ints
+    if (mine && !open) emit_ints(w_in, base + hloc, slot_at(hloc));
+    __syncthreads();
+  }
 
   // 7. warp 0 looks back, for a chain entering from the left (then base is
   //    no multiple of 2^15 and position 0 of the block is open), while the
@@ -471,10 +556,42 @@ __global__ void __launch_bounds__(KL_CHAIN_MAX_T) kl_chain_kernel(
     }
   }
   if (h0 < n) emit_values(h0, n, false);
-  if (mine && !open) emit_ints(w_in, base + hloc, slot_at(hloc));
+  if constexpr (!ROWS)
+    if (mine && !open) emit_ints(w_in, base + hloc, slot_at(hloc));
   __syncthreads();
+  if constexpr (ROWS) {
+    if (mine && open) emit_ints(w_in + misc[3], misc[1], misc[2]);
+    __syncthreads();
+  }
   if (h0 > 0) emit_values(0, min(h0, n), true);
-  if (mine && open) emit_ints(w_in + misc[3], misc[1], misc[2]);
+  if constexpr (!ROWS)
+    if (mine && open) emit_ints(w_in + misc[3], misc[1], misc[2]);
+}
+
+static bool kl_chain_plan_ok(int S, int W, int P, int T, int smem) {
+  return W >= S + 2 && W % 4 == 0 && P >= 32 && P <= KL_CHAIN_MAX_P &&
+         (P & (P - 1)) == 0 && T >= P && T <= KL_CHAIN_MAX_T && T % 32 == 0 &&
+         (long long)smem == 4 * kl_chain_words(S, W, P) && smem <= 227 * 1024;
+}
+
+template <bool ROWS>
+static int kl_chain_launch(const void* rows, int W, int S, long long M,
+                           const void* order, const void* skey,
+                           const void* smi, float thr, int free_bits, int P,
+                           int T, int smem, void* status, void* agg,
+                           void* out_v, void* out_size, void* out_slot,
+                           void* out_mi, void* parent, long long base,
+                           cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kl_chain_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  kl_chain_kernel<ROWS><<<kl_blocks(M, P), T, smem, st>>>(
+      (const unsigned*)rows, W, (const int*)order, S, M, P,
+      (const int*)skey, (const int*)smi, thr, free_bits, (float*)out_v,
+      (int*)out_size, (int*)out_slot, (int*)out_mi, (int*)parent, base,
+      (int*)status, (int*)agg);
+  return (int)cudaGetLastError();
 }
 
 KL_EXPORT int kl_chain_collapse(const void* vin, long long ld_in, int S,
@@ -486,22 +603,31 @@ KL_EXPORT int kl_chain_collapse(const void* vin, long long ld_in, int S,
                                 void* status, void* agg, void* out_v,
                                 void* out_size, void* out_slot, void* out_mi,
                                 void* parent, long long base, void* stream) {
-  if (!kl_move_plan_ok(S, W, C, move_smem) || P < 32 ||
-      P > KL_CHAIN_MAX_P || (P & (P - 1)) != 0 || T < P ||
-      T > KL_CHAIN_MAX_T || T % 32 != 0 ||
-      (long long)smem != 4 * kl_chain_words(S, W, P) || smem > 227 * 1024)
+  if (!kl_move_plan_ok(S, W, C, move_smem) ||
+      !kl_chain_plan_ok(S, W, P, T, smem))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int e = kl_permute_to_scratch(vin, ld_in, S, M, sizes, slots, W, C,
                                       move_smem, scratch, st);
   if (e != 0) return e;
-  cudaError_t err = cudaFuncSetAttribute(
-      kl_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kl_chain_kernel<<<kl_blocks(M, P), T, smem, st>>>(
-      (const unsigned*)scratch, W, (const int*)order, S, M, P,
-      (const int*)skey, (const int*)smi, thr, free_bits, (float*)out_v,
-      (int*)out_size, (int*)out_slot, (int*)out_mi, (int*)parent, base,
-      (int*)status, (int*)agg);
-  return (int)cudaGetLastError();
+  return kl_chain_launch<false>(scratch, W, S, M, order, skey, smi, thr,
+                                free_bits, P, T, smem, status, agg, out_v,
+                                out_size, out_slot, out_mi, parent, base, st);
+}
+
+// A chain session's iteration on its row state: rows [M, W] in input order
+// (kl_state_rows' layout) in, the collapsed rows [M, W] in sorted position
+// order and their sizes as a column out; one launch.
+KL_EXPORT int kl_chain_collapse_rows(const void* rows, int W, int S,
+                                     long long M, const void* order,
+                                     const void* skey, float thr,
+                                     int free_bits, int P, int T, int smem,
+                                     void* status, void* agg, void* out_rows,
+                                     void* out_size, void* parent,
+                                     long long base, void* stream) {
+  if (!kl_chain_plan_ok(S, W, P, T, smem)) return (int)cudaErrorInvalidValue;
+  return kl_chain_launch<true>(rows, W, S, M, order, skey, nullptr, thr,
+                               free_bits, P, T, smem, status, agg, out_rows,
+                               out_size, nullptr, nullptr, parent, base,
+                               (cudaStream_t)stream);
 }

@@ -38,11 +38,20 @@ __device__ __forceinline__ void kl_cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The words of a profile-major row staged in shared memory, for a row of W
+// words (a multiple of 4): 16-byte aligned and an odd number of 16-byte
+// pieces (W itself where W = 4 mod 8, else W + 4), so that the 16-byte
+// reads of eight neighbouring rows cover the 32 banks.
+__host__ __device__ __forceinline__ int kl_stage_ld(int W) {
+  return (W & 7) ? W : W + 4;
+}
+
 // K2's launch (a) alone (csrc/permute_state.cu): the state into the
 // profile-major scratch [M, W], each column's S values, size and slot in a
 // row of W words, for the gathers that read whole rows of it by a sort
-// order (K3's staging, finalize's columns). KL_MOVE_THREADS threads a block;
-// W, C (columns a block) and smem are kernels.permute_plan's, which
+// order (K3's staging, finalize's columns), and into a chain session's row
+// state. KL_MOVE_THREADS threads a block; W, C (columns a block) and smem
+// are kernels.permute_plan's (rows_plan's for the row state), which
 // kl_move_plan_ok checks.
 #define KL_MOVE_THREADS 256
 
@@ -52,21 +61,20 @@ int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
                           void* scratch, cudaStream_t st);
 
 static inline bool kl_move_plan_ok(int S, int W, int C, int smem) {
-  return W >= S + 2 && W % 8 == 0 && C >= 32 && KL_MOVE_THREADS % C == 0 &&
-         smem == 4 * C + 4 * C * (W + 4);
+  return W >= S + 2 && W % 4 == 0 && C >= 32 && KL_MOVE_THREADS % C == 0 &&
+         smem == 4 * C + 4 * C * kl_stage_ld(W);
 }
 
 // Rows ord[c] of the row-major scratch scr ([*, W] words, W a multiple of 4)
-// into a shared tile of n rows of W + 4 words (16-byte aligned, W + 4 = 4
-// mod 8 keeps the 16-byte reads of eight neighbouring rows on distinct
-// banks): ord[c] = order[c] is read once a row, the rows come in by 16-byte
-// cp.async spread over the block's THREADS threads, and the block waits for
-// them. K2's gather and finalize's gather stage their rows so.
+// into a shared tile of n rows of kl_stage_ld(W) words: ord[c] = order[c]
+// is read once a row, the rows come in by 16-byte cp.async spread over the
+// block's THREADS threads, and the block waits for them. K2's gather and
+// finalize's gather stage their rows so.
 template <int THREADS>
 __device__ __forceinline__ void kl_stage_rows(
     const unsigned* __restrict__ scr, int W, const int* __restrict__ order,
     int n, int* ord, unsigned* tile) {
-  const int t = threadIdx.x, ldt = W + 4, Q = W / 4;
+  const int t = threadIdx.x, ldt = kl_stage_ld(W), Q = W / 4;
   for (int c = t; c < n; c += THREADS) ord[c] = order[c];
   __syncthreads();
   // quad e of the run is (row e / Q, quad e % Q)

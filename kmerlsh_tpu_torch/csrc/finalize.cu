@@ -139,8 +139,8 @@ __global__ void __launch_bounds__(KL_FIN_CHUNK)
 
 // Step 8's gather: a block takes C consecutive cluster rows k, reads each
 // order[k] once, copies the W words of each source row of the scratch into
-// shared memory with 16-byte cp.async (rows of W + 4 words, as K2's gather
-// tile), and writes its n rows of centroids, which are n * S contiguous
+// shared memory with 16-byte cp.async (rows of kl_stage_ld(W) words, as
+// K2's gather tile), and writes its n rows of centroids, which are n * S contiguous
 // words, coalesced: word j of the run is (row j / S, value j % S).
 __global__ void __launch_bounds__(KL_FIN_MOVE_THREADS) kl_fin_gather(
     const unsigned* __restrict__ scr, int S, long long fc,
@@ -149,8 +149,8 @@ __global__ void __launch_bounds__(KL_FIN_MOVE_THREADS) kl_fin_gather(
     int* __restrict__ lens) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* ord = (int*)smem;                        // [C]
-  unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][W + 4]
-  const int t = threadIdx.x, ldt = W + 4;
+  unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][kl_stage_ld(W)]
+  const int t = threadIdx.x, ldt = kl_stage_ld(W);
   const long long k0 = (long long)blockIdx.x * C;
   const int n = (int)min((long long)C, fc - k0);
   kl_stage_rows<KL_FIN_MOVE_THREADS>(scr, W, order + k0, n, ord, tile);

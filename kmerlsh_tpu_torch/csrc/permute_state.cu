@@ -26,10 +26,17 @@
 // At 2^24 x 20 that is ~6.3 GB of traffic against ~15 GB for the direct
 // gather. Bank conflicts: the transpose tile's rows are W + 1 words (odd),
 // so its column-wise writes hit distinct banks; the gather tile's rows are
-// W + 4 words (16-byte aligned, W + 4 = 4 mod 8), so the 16-byte reads of
-// eight neighbouring columns cover distinct banks. The scratch is allocated
-// by the wrapper; the launch arithmetic (W, C, shared memory) is
-// kmerlsh_tpu_torch.kernels.permute_plan, checked here.
+// kl_stage_ld(W) words (16-byte aligned, an odd number of 16-byte pieces),
+// so the 16-byte reads of eight neighbouring columns cover distinct banks.
+// The scratch is allocated by the wrapper; the launch arithmetic (W, C,
+// shared memory) is kmerlsh_tpu_torch.kernels.permute_plan, checked here.
+//
+// A chain session (cluster/engine.py) carries its state between iterations
+// as such rows (kernels.rows_plan: W the least multiple of 4 words at or
+// above S + 2, so at S = 18 rows of 20 words against the scratch's 24): (a)
+// alone makes it once a session (kl_state_rows), (b) alone takes it back to
+// [S, M] columns in the compaction's order (kl_rows_gather). Between them
+// K1b and K3 read and write the rows themselves, and no iteration runs (a).
 
 #include "common.cuh"
 
@@ -76,8 +83,8 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
     unsigned* __restrict__ slots_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* ord = (int*)smem;                        // [C]
-  unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][W + 4]
-  const int t = threadIdx.x, ldt = W + 4;
+  unsigned* tile = (unsigned*)(smem + 4 * C);   // [C][kl_stage_ld(W)]
+  const int t = threadIdx.x, ldt = kl_stage_ld(W);
   const long long i0 = (long long)blockIdx.x * C;
   const int n = (int)min((long long)C, M - i0);
   kl_stage_rows<KL_MOVE_THREADS>(scr, W, order + i0, n, ord, tile);
@@ -98,8 +105,9 @@ __global__ void __launch_bounds__(KL_MOVE_THREADS) kl_permute_gather(
 
 // Launch (a) alone: the state into the scratch [M, W], for the chain
 // collapse (csrc/chain_collapse.cu), which stages whole rows of it by the
-// sort order, and finalize's column move (csrc/finalize.cu
-// kl_finalize_columns). W, C and smem are permute_plan's, as for
+// sort order, finalize's column move (csrc/finalize.cu
+// kl_finalize_columns) and a chain session's row state (kl_state_rows).
+// W, C and smem are permute_plan's (rows_plan's for the row state), as for
 // kl_permute_state.
 int kl_permute_to_scratch(const void* vin, long long ld_in, int S,
                           long long M, const void* sizes_in,
@@ -132,5 +140,33 @@ KL_EXPORT int kl_permute_state(const void* vin, long long ld_in, int S,
   kl_permute_gather<<<kl_blocks(M, C), KL_MOVE_THREADS, smem, st>>>(
       (const unsigned*)scratch, S, M, (const int*)order, W, C,
       (unsigned*)vout, (unsigned*)sizes_out, (unsigned*)slots_out);
+  return (int)cudaGetLastError();
+}
+
+// The row state of a chain session: launch (a) alone, the state [S, M]
+// (rows may be strided) into rows [M, W]. W, C and smem are rows_plan's.
+KL_EXPORT int kl_state_rows(const void* vin, long long ld_in, int S,
+                            long long M, const void* sizes_in,
+                            const void* slots_in, int W, int C, int smem,
+                            void* rows, void* stream) {
+  if (!kl_move_plan_ok(S, W, C, smem)) return (int)cudaErrorInvalidValue;
+  return kl_permute_to_scratch(vin, ld_in, S, M, sizes_in, slots_in, W, C,
+                               smem, rows, (cudaStream_t)stream);
+}
+
+// Launch (b) alone: the row state [*, W] gathered by an order into [S, M]
+// columns (values, sizes, slots). W, C and smem are rows_plan's.
+KL_EXPORT int kl_rows_gather(const void* rows, int S, long long M,
+                             const void* order, int W, int C, int smem,
+                             void* vout, void* sizes_out, void* slots_out,
+                             void* stream) {
+  if (!kl_move_plan_ok(S, W, C, smem)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(
+      kl_permute_gather, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kl_permute_gather<<<kl_blocks(M, C), KL_MOVE_THREADS, smem, st>>>(
+      (const unsigned*)rows, S, M, (const int*)order, W, C, (unsigned*)vout,
+      (unsigned*)sizes_out, (unsigned*)slots_out);
   return (int)cudaGetLastError();
 }

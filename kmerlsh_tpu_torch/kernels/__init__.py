@@ -11,13 +11,14 @@ main path went through the kernels.
 | -------------------- | ---------------------- | ----------------------------------------- |
 | abundance_transform  | csrc/lsh_keys.cu       | ops/transform.py abundance_transform_t    |
 | lsh_keys             | csrc/lsh_keys.cu       | ops/lsh.py signatures_t + engine.py       |
-|                      |                        | _combined_sort_key                        |
+| (lsh_keys_rows)      |                        | _combined_sort_key                        |
 | sort_keys            | csrc/sort_keys.cu      | engine.py _sort_state / compact_sort /    |
 |                      |                        | _finalize_grouped key sorts (lax.sort)    |
 | permute_state        | csrc/permute_state.cu  | engine.py _sort_state / compact_sort      |
-|                      |                        | payloads                                  |
+| (to_rows,            |                        | payloads                                  |
+| permute_rows)        |                        |                                           |
 | chain_collapse       | csrc/chain_collapse.cu | engine.py chain_collapse + parent fold    |
-|                      | (+ permute_state.cu's  | (and parallel/dist.py's local fold), with |
+| (chain_collapse_rows)| (+ permute_state.cu's  | (and parallel/dist.py's local fold), with |
 |                      | transpose)             | the payload move of its sort              |
 | finalize             | csrc/finalize.cu       | engine.py _finalize_grouped               |
 | wrs_verdicts         | csrc/ttest.cu          | ops/ttest.py t_cdf, studentttest2,        |
@@ -32,6 +33,13 @@ main path went through the kernels.
 | pairing_rounds       | csrc/pairing.cu        | engine.py pairing_merge (its rounds)      |
 | draw_planes          | csrc/planes.cu         | ops/lsh.py:27-30 jax.random.normal (each  |
 |                      |                        | iteration's hyperplanes, in-graph)        |
+
+A chain session (cluster/engine.py) carries its state between iterations as
+rows: row m holds column m's S values, its size and its slot as 32-bit
+words, padded to :func:`row_words` (int32 [M, W]). ``to_rows`` makes it,
+``lsh_keys_rows`` and ``chain_collapse_rows`` read it, the latter writes
+it, and ``permute_rows`` takes it back to [S, M] columns; every other
+wrapper keeps the [S, M] contract.
 """
 
 from __future__ import annotations
@@ -49,6 +57,9 @@ CHAIN_THREADS = 128       # threads of a K3 block, at least (a thread a
                           # position where a block has more positions)
 LSH_PLANES = (4, 8, 12, 16, 20, 24, 28, 30)   # K1b's sign-plane counts
 LSH_RING = 8              # value rows a K1b block keeps in flight
+LSH_ROW_PIECES = 2        # 16-byte pieces of each row a stage of K1b on
+                          # rows holds
+LSH_ROW_RING = 3          # stages a K1b block on rows keeps
 WRS_WARPS = 4             # warps a K6 block
 WRS_TILES = 4             # 32-row tiles a K6 warp takes of its block's rows,
                           # at most
@@ -79,7 +90,7 @@ PAIR_M_MAX = 2**31 - 1 - 8192   # K10's positions, at most (int32)
 
 launches: dict[str, int] = {
     "abundance_transform": 0, "lsh_keys": 0, "sort_keys": 0,
-    "permute_state": 0,
+    "permute_state": 0, "to_rows": 0, "permute_rows": 0,
     "chain_collapse": 0, "finalize": 0, "wrs_verdicts": 0, "key_directory": 0,
     "score_reads": 0, "exchange_window": 0, "exchange_fold": 0,
     "pairing_rounds": 0, "draw_planes": 0,
@@ -170,18 +181,22 @@ def lsh_keys_plain(values_t, sizes, hyperplanes, h: int):
     return lsh.combined_sort_key(keys, proj, sizes, h), proj
 
 
-def lsh_plan(S: int, h: int) -> dict:
+def lsh_plan(S: int, h: int, rows: bool = False) -> dict:
     """Launch arithmetic of ``lsh_keys`` at S rows and h bucket bits:
     ``planes``, the sign planes the kernel computes (the least of
     LSH_PLANES ≥ h; the secondary plane comes on top); blocks of
     ``threads`` threads and ``cols`` columns; ``smem``, the bytes of a
     block's S rows of the planes in use padded to whole float4s and of its
-    ring of LSH_RING value rows."""
+    ring of LSH_RING value rows, or with ``rows`` (``lsh_keys_rows``) of
+    LSH_ROW_RING stages of LSH_ROW_PIECES 16-byte pieces of each of its
+    rows."""
     if not 1 <= h <= lsh.H_MAX:
         raise ValueError(f"h = {h} outside [1, {lsh.H_MAX}]")
     T = next(t for t in LSH_PLANES if t >= h)
     threads, cols = 128, 4 * 128
-    smem = 16 * S * -(-(T + 1) // 4) + 4 * LSH_RING * cols
+    ring = (16 * LSH_ROW_RING * LSH_ROW_PIECES * cols if rows
+            else 4 * LSH_RING * cols)
+    smem = 16 * S * -(-(T + 1) // 4) + ring
     if smem > SMEM_LIMIT:
         raise ValueError(f"lsh_keys: S = {S} rows need {smem} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
@@ -208,6 +223,40 @@ def lsh_keys(values_t: torch.Tensor, sizes: torch.Tensor,
     minmax = torch.empty(2, dtype=torch.int32, device=values_t.device)
     if M:
         _launch("kl_lsh_keys", values_t.data_ptr(), values_t.stride(0), S, M,
+                planes.data_ptr(), sizes.data_ptr(), h, plan["planes"],
+                plan["smem"], free_bits(h), keys.data_ptr(), proj.data_ptr(),
+                minmax.data_ptr())
+        launches["lsh_keys"] += 1
+    return keys, proj
+
+
+def lsh_keys_rows_plain(rows, sizes, hyperplanes, h: int):
+    return lsh_keys_plain(rows_values(rows, hyperplanes.shape[0]), sizes,
+                          hyperplanes, h)
+
+
+def lsh_keys_rows(rows: torch.Tensor, sizes: torch.Tensor,
+                  hyperplanes: torch.Tensor, h: int):
+    """``lsh_keys`` on a chain session's row state: rows int32 [M, W]
+    (:func:`to_rows`' layout; S, the planes' rows), sizes int32 [M] as a
+    column → the same keys and projections, bit for bit."""
+    if not _on_cuda(rows, sizes, hyperplanes):
+        return lsh_keys_rows_plain(rows, sizes, hyperplanes, h)
+    _check(rows, torch.int32, "rows", 2)
+    _check(sizes, torch.int32, "sizes")
+    planes = hyperplanes.to(torch.float32).contiguous()
+    S = planes.shape[0]
+    M, W = rows.shape
+    if (planes.shape != (S, lsh.H_MAX + 1) or W != row_words(S)
+            or not rows.is_contiguous() or sizes.shape[0] != M):
+        raise ValueError(f"lsh_keys_rows: rows {tuple(rows.shape)}, sizes "
+                         f"{tuple(sizes.shape)}, planes {tuple(planes.shape)}")
+    plan = lsh_plan(S, h, rows=True)
+    keys = torch.empty(M, dtype=torch.int32, device=rows.device)
+    proj = torch.empty(M, dtype=torch.float32, device=rows.device)
+    minmax = torch.empty(2, dtype=torch.int32, device=rows.device)
+    if M:
+        _launch("kl_lsh_keys_rows", rows.data_ptr(), W, S, M,
                 planes.data_ptr(), sizes.data_ptr(), h, plan["planes"],
                 plan["smem"], free_bits(h), keys.data_ptr(), proj.data_ptr(),
                 minmax.data_ptr())
@@ -331,6 +380,36 @@ def sort_keys(key: torch.Tensor, bits: int,
 
 # --- K2: permute ------------------------------------------------------------
 
+def stage_words(W: int) -> int:
+    """The words of a profile-major row of W words (a multiple of 4) when
+    a block stages it in shared memory: 16-byte aligned, an odd number of
+    16-byte pieces (W where W = 4 mod 8, else W + 4), so that the 16-byte
+    reads of eight neighbouring rows cover the 32 banks (csrc/common.cuh
+    ``kl_stage_ld``)."""
+    return W if W % 8 else W + 4
+
+
+def row_words(S: int) -> int:
+    """The words of a row of a chain session's row state: the S values,
+    the size and the slot in whole 16-byte pieces (the least multiple of 4
+    at or above S + 2). A random row's read still takes whole 32-byte
+    sectors, as many as a row padded to them, while the rows read and
+    written in order move only these bytes: 20 words at S = 18 against 24,
+    128 at S = 124 either way."""
+    return -(-(S + 2) // 4) * 4
+
+
+def _move_plan(S: int, W: int, M: int, what: str) -> dict:
+    cols = 128
+    while cols > 32 and 4 * cols * stage_words(W) > STAGE_BYTES:
+        cols //= 2
+    smem = 4 * cols + 4 * cols * stage_words(W)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: S = {S} rows need {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return dict(W=W, cols=cols, blocks=-(-M // cols), threads=256, smem=smem)
+
+
 def permute_plan(S: int, M: int) -> dict:
     """Launch arithmetic of ``permute_state`` at S rows and M columns: W,
     the 32-bit words of a scratch row (the S values, the size and the slot,
@@ -338,16 +417,84 @@ def permute_plan(S: int, M: int) -> dict:
     transpose tile and gather run (128, 64 or 32: the most whose tile stays
     within STAGE_BYTES, so that several blocks share an SM); the blocks of
     each of the two launches and the shared memory of one (the gather's:
-    the int32 order run, then rows of W + 4 words)."""
-    W = -(-(S + 2) // 8) * 8
-    cols = 128
-    while cols > 32 and 4 * cols * (W + 4) > STAGE_BYTES:
-        cols //= 2
-    smem = 4 * cols + 4 * cols * (W + 4)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"permute_state: S = {S} rows need {smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
-    return dict(W=W, cols=cols, blocks=-(-M // cols), threads=256, smem=smem)
+    the int32 order run, then rows of ``stage_words(W)`` words)."""
+    return _move_plan(S, -(-(S + 2) // 8) * 8, M, "permute_state")
+
+
+def rows_plan(S: int, M: int) -> dict:
+    """``permute_plan``'s arithmetic for a chain session's row state (W =
+    :func:`row_words`): ``to_rows`` runs K2's transpose launch alone,
+    ``permute_rows`` its gather launch alone."""
+    return _move_plan(S, row_words(S), M, "rows")
+
+
+def to_rows_plain(values_t, sizes, slots):
+    S, M = values_t.shape
+    rows = torch.zeros((M, row_words(S)), dtype=torch.int32,
+                       device=values_t.device)
+    rows[:, :S] = values_t.T.contiguous().view(torch.int32)
+    rows[:, S] = sizes
+    rows[:, S + 1] = slots
+    return rows
+
+
+def rows_values(rows: torch.Tensor, S: int) -> torch.Tensor:
+    """The values of a row state as f32 [S, M] (a view)."""
+    return rows.view(torch.float32)[:, :S].T
+
+
+def to_rows(values_t: torch.Tensor, sizes: torch.Tensor,
+            slots: torch.Tensor) -> torch.Tensor:
+    """A chain session's row state of its state (values f32 [S, M], rows
+    may be strided; sizes, slots int32 [M]): int32 [M, row_words(S)], row m
+    column m's values, size and slot, the pads 0. On a card K2's transpose
+    launch alone."""
+    if not _on_cuda(values_t, sizes, slots):
+        return to_rows_plain(values_t, sizes, slots)
+    _check(values_t, torch.float32, "values_t", 2)
+    _check(sizes, torch.int32, "sizes")
+    _check(slots, torch.int32, "slots")
+    S, M = values_t.shape
+    plan = rows_plan(S, M)
+    rows = torch.empty((M, plan["W"]), dtype=torch.int32,
+                       device=values_t.device)
+    if M:
+        _launch("kl_state_rows", values_t.data_ptr(), values_t.stride(0), S,
+                M, sizes.data_ptr(), slots.data_ptr(), plan["W"],
+                plan["cols"], plan["smem"], rows.data_ptr())
+        launches["to_rows"] += 1
+    return rows
+
+
+def permute_rows_plain(rows, S: int, order):
+    sel = rows[order.long()]
+    return (rows_values(sel, S).contiguous(), sel[:, S].contiguous(),
+            sel[:, S + 1].contiguous())
+
+
+def permute_rows(rows: torch.Tensor, S: int, order: torch.Tensor):
+    """A row state (:func:`to_rows`) moved by a permutation back to the
+    [S, M] contract: column i of the outputs (values f32 [S, M], sizes,
+    slots int32 [M]) is row order[i]. On a card K2's gather launch
+    alone."""
+    if not _on_cuda(rows, order):
+        return permute_rows_plain(rows, S, order)
+    _check(rows, torch.int32, "rows", 2)
+    _check(order, torch.int32, "order")
+    M = order.shape[0]
+    if rows.shape[1] != row_words(S) or not rows.is_contiguous():
+        raise ValueError(f"permute_rows: rows {tuple(rows.shape)} at S = {S}")
+    dev = rows.device
+    out = torch.empty((S, M), dtype=torch.float32, device=dev)
+    osizes = torch.empty(M, dtype=torch.int32, device=dev)
+    oslots = torch.empty(M, dtype=torch.int32, device=dev)
+    if M:
+        plan = rows_plan(S, M)
+        _launch("kl_rows_gather", rows.data_ptr(), S, M, order.data_ptr(),
+                plan["W"], plan["cols"], plan["smem"], out.data_ptr(),
+                osizes.data_ptr(), oslots.data_ptr())
+        launches["permute_rows"] += 1
+    return out, osizes, oslots
 
 
 def permute_state_plain(values_t, sizes, slots, order):
@@ -417,12 +564,14 @@ def _rev_fill(last, scs, m: int):
     return fill.flip(0)
 
 
-def chain_plan(S: int, M: int) -> dict:
+def chain_plan(S: int, M: int, rows: bool = False) -> dict:
     """Launch arithmetic of ``chain_collapse`` at S rows and M positions:
     ``W``, the words of a scratch row (``permute_plan``'s: the S values,
-    the size and the slot in whole 32-byte sectors), staged into a row of
-    ``row`` = W + 4 words (16-byte aligned, an odd number of 16-byte
-    pieces: the 16-byte reads of eight neighbouring rows miss no bank);
+    the size and the slot in whole 32-byte sectors; with ``rows``, for
+    ``chain_collapse_rows``, :func:`row_words`), staged into a row of
+    ``row`` = ``stage_words(W)`` words (16-byte aligned, an odd number of
+    16-byte pieces: the 16-byte reads of eight neighbouring rows miss no
+    bank);
     ``blocks`` blocks, one per sub-range of P positions, P the largest
     power of two in [32, 512] whose P + 2 staged rows (a halo position on
     each side) stay within STAGE_BYTES (P divides 2^15, so no sub-range
@@ -433,8 +582,8 @@ def chain_plan(S: int, M: int) -> dict:
     links, sizes as floats, the warp-local size sums, the warps' value
     totals (first the staged rows' sources), their size totals, latest
     heads and masks, the carry's value sums and 8 ints."""
-    W = permute_plan(S, M)["W"]
-    row = W + 4
+    W = row_words(S) if rows else permute_plan(S, M)["W"]
+    row = stage_words(W)
     P = 512
     while P > 32 and 4 * (P + 2) * row > STAGE_BYTES:
         P //= 2
@@ -540,6 +689,54 @@ def chain_collapse(values_t: torch.Tensor, sizes: torch.Tensor,
                 _ptr(parent), int(base))
         launches["chain_collapse"] += 1
     return out_v, out_size, out_slot, out_mi
+
+
+def chain_collapse_rows_plain(rows, S: int, order, skey, threshold: float,
+                              h: int, parent=None, base: int = 0):
+    out = chain_collapse_plain(*permute_rows_plain(rows, S, order), skey,
+                               threshold, h, None, parent, base)
+    return to_rows_plain(*out[:3]), out[1]
+
+
+def chain_collapse_rows(rows: torch.Tensor, S: int, order: torch.Tensor,
+                        skey: torch.Tensor, threshold: float, h: int,
+                        parent: torch.Tensor | None = None, base: int = 0):
+    """A chain session's iteration of ``chain_collapse`` on its row state:
+    rows int32 [M, row_words(S)] (:func:`to_rows`' layout) in input order,
+    K9's int32 ``order`` and sorted keys ``skey`` → (the collapsed rows in
+    sorted position order, the same layout, the pads as they were; their
+    sizes int32 [M] as a column), each row what ``chain_collapse`` gives
+    that position's column; ``parent`` and ``base`` as there. No
+    merged_into. On a card one launch, which stages its positions' rows by
+    the order and writes each block's rows as one contiguous run."""
+    if not _on_cuda(rows, order, skey, parent):
+        return chain_collapse_rows_plain(rows, S, order, skey, threshold, h,
+                                         parent, base)
+    _check(rows, torch.int32, "rows", 2)
+    for name, t in (("order", order), ("skey", skey), ("parent", parent)):
+        if t is not None:
+            _check(t, torch.int32, name)
+    M, W = rows.shape
+    if (W != row_words(S) or not rows.is_contiguous()
+            or order.shape[0] != M or skey.shape[0] != M):
+        raise ValueError(f"chain_collapse_rows: rows {tuple(rows.shape)} at "
+                         f"S = {S}, order {tuple(order.shape)}, skey "
+                         f"{tuple(skey.shape)}")
+    dev = rows.device
+    out = torch.empty_like(rows)
+    out_size = torch.empty(M, dtype=torch.int32, device=dev)
+    if M:
+        plan = chain_plan(S, M, rows=True)
+        nsub = plan["blocks"]
+        status = torch.zeros(nsub + 1, dtype=torch.int32, device=dev)
+        agg = torch.empty(nsub * (3 + S), dtype=torch.int32, device=dev)
+        _launch("kl_chain_collapse_rows", rows.data_ptr(), W, S, M,
+                order.data_ptr(), skey.data_ptr(), float(threshold),
+                free_bits(h), plan["P"], plan["threads"], plan["smem"],
+                status.data_ptr(), agg.data_ptr(), out.data_ptr(),
+                out_size.data_ptr(), _ptr(parent), int(base))
+        launches["chain_collapse"] += 1
+    return out, out_size
 
 
 # --- K5: finalize -------------------------------------------------------------

@@ -34,13 +34,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     "kl_transform": (_P, _P, _I, _L, _F, _P, _P, _P),
     "kl_lsh_keys": (_P, _L, _I, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "kl_lsh_keys_rows": (_P, _I, _I, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                         _P),
     "kl_sort_keys": (_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _P, _P,
                      _P),
     "kl_permute_state": (_P, _L, _I, _L, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                          _P, _P),
+    "kl_state_rows": (_P, _L, _I, _L, _P, _P, _I, _I, _I, _P, _P),
+    "kl_rows_gather": (_P, _I, _L, _P, _I, _I, _I, _P, _P, _P, _P),
     "kl_chain_collapse": (_P, _L, _I, _L, _P, _P, _P, _P, _P, _F, _I, _I,
                           _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P, _L, _P),
+    "kl_chain_collapse_rows": (_P, _I, _I, _L, _P, _P, _F, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P, _L, _P),
     "kl_finalize_roots": (_L, _L, _P, _P, _P, _P, _P, _P),
     "kl_finalize_segments": (_L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "kl_finalize_columns": (_I, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,

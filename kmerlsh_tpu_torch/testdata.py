@@ -14,7 +14,9 @@ tests and chip_smoke.py.
 ``window_keys``, ``marker_keys``, ``write_hex`` and ``write_source_fastqs``
 build mode-E inputs from source sequences, so that chip_smoke.py needs no
 codec of its own. ``exchange_inputs`` and ``finalize_case`` make the inputs
-of the exchange fold and of finalize.
+of the exchange fold and of finalize. ``column_session`` runs a chain
+session with its state kept as [S, M] columns, the loop a chain session ran
+before it carried rows, for the tests that hold the row state to it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from kmerlsh_tpu_torch.kmer import codec
 
 __all__ = ["generate", "profile_pool", "session_input", "wrs_rows", "read_part", "score_case",
            "window_keys", "marker_keys", "write_hex", "write_source_fastqs",
-           "exchange_inputs", "finalize_case", "forest_depth"]
+           "exchange_inputs", "finalize_case", "forest_depth",
+           "column_session"]
 
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -421,6 +424,41 @@ def forest_depth(parent) -> tuple[int, float]:
         x = nxt
     return (int(depth.max()) if len(x) else 0,
             float(depth.double().mean()) if len(x) else 0.0)
+
+
+def column_session(counts, v, thresholds, seed: int):
+    """``engine.cluster_counts(counts, v, thresholds, seed=seed)`` (a chain
+    session) with its state kept as [S, M] columns: the transform, each
+    iteration through ``engine._one_iteration``, ``engine.compact_sort``,
+    finalize and the pull. Returns the (centroids, sizes, members) triple
+    and the parent forest."""
+    import torch
+
+    from kmerlsh_tpu_torch import kernels
+    from kmerlsh_tpu_torch.cluster import engine
+
+    dev = counts.device
+    s, n = counts.shape
+    values, sizes = kernels.abundance_transform(
+        counts, torch.as_tensor(np.asarray(v, np.float32), device=dev))
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    parent = slots.clone()
+    planes = kernels.draw_planes(seed, len(thresholds), s, dev)
+    na = int((sizes > 0).sum())
+    for it, thr in enumerate(np.asarray(thresholds, np.float32)):
+        if na == 0:
+            break
+        values, sizes, slots, _ = engine._one_iteration(
+            values, sizes, slots, parent, planes[it], float(thr),
+            engine._active_h_of(na), merged=False)
+        nxt = int((sizes > 0).sum())
+        values, sizes, slots = values[:, :na], sizes[:na], slots[:na]
+        na = nxt
+    values, sizes, slots = engine.compact_sort(values, sizes, slots)
+    out = kernels.finalize(values[:, :na].contiguous(), sizes[:na],
+                           slots[:na], parent)
+    stats = dict(pull_seconds=0.0, pull_bytes=0, pull_host_allocs=0)
+    return engine._pull(*out, stats), parent
 
 
 if __name__ == "__main__":

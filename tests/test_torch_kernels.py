@@ -355,6 +355,163 @@ def test_chain_collapse_refuses_bad_input(dev):
             kernels.chain_collapse(*bad, 0.9, 3)
 
 
+# --- a chain session's row state ----------------------------------------------
+
+@pytest.mark.parametrize("s", [1, 3, 18, 20, 124, 300])
+def test_to_rows_and_permute_rows_exact(dev, s):
+    """K2's transpose alone into the row state (from a column slice of a
+    wider matrix, M a multiple of no block's columns) and its gather alone
+    back to columns, each exact against its plain twin; the pads 0."""
+    n, m = 1 << 16, 40003
+    r = np.random.default_rng(s)
+    wide = torch.from_numpy(r.normal(size=(s, n)).astype(np.float32)).to(dev)
+    sizes = torch.from_numpy(r.integers(0, 9, n, dtype=np.int32)).to(dev)
+    slots = torch.randperm(n, device=dev).to(torch.int32)
+    order = torch.randperm(m, device=dev).to(torch.int32)
+    assert m % kernels.rows_plan(s, m)["cols"]
+    rows = kernels.to_rows(wide[:, :m], sizes[:m], slots[:m])
+    assert torch.equal(rows, kernels.to_rows_plain(wide[:, :m], sizes[:m],
+                                                   slots[:m]))
+    assert not rows[:, s + 2:].any()
+    k = kernels.permute_rows(rows, s, order)
+    p = kernels.permute_rows_plain(rows, s, order)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("s", [1, 3, 18, 20, 124, 600, 1400])
+def test_lsh_keys_rows_equal_the_columns(dev, s):
+    """K1b on the row state gives K1b's keys and projections on the same
+    columns bit for bit (and its plain twin's), at every boundary of the
+    sign-plane counts, on a prefix of the rows (an iteration's alive
+    prefix) of a length that is a multiple of no block's columns."""
+    r = np.random.default_rng(s)
+    n, m = 5007, 5000
+    values = torch.from_numpy(r.normal(size=(s, n)).astype(np.float32)).to(dev)
+    sizes = torch.from_numpy(r.integers(0, 3, n, dtype=np.int32)).to(dev)
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    rows = kernels.to_rows(values, sizes, slots)
+    planes = rng.draw_hyperplanes(1, 0, s).to(dev)
+    for h in (H_EDGES if s in (18, 124) else (1, 9, 17, 24, 30)):
+        k = kernels.lsh_keys_rows(rows[:m], sizes[:m], planes, h)
+        c = kernels.lsh_keys(values[:, :m], sizes[:m], planes, h)
+        p = kernels.lsh_keys_rows_plain(rows[:m], sizes[:m], planes, h)
+        for a, b in ((k[0], c[0]), (k[1], c[1]), (k[0], p[0]), (k[1], p[1])):
+            assert torch.equal(a, b), h
+
+
+def test_lsh_keys_rows_refuses_bad_input(dev):
+    values = torch.zeros((20, 100), device=dev)
+    sizes = torch.ones(100, dtype=torch.int32, device=dev)
+    rows = kernels.to_rows(values, sizes, sizes)
+    planes = rng.draw_hyperplanes(1, 0, 20).to(dev)
+    for bad in ((rows[:, :20], sizes, planes), (rows[::2], sizes[:50], planes),
+                (rows, sizes[:99], planes), (rows, sizes, planes[:18]),
+                (rows.float(), sizes, planes)):
+        with pytest.raises(ValueError):
+            kernels.lsh_keys_rows(*bad, 9)
+
+
+def _rows_collapse_same(values, sizes, slots, order, skey, thr, h,
+                        parent=None, base=0):
+    """chain_collapse_rows on the row state of (values, sizes, slots)
+    against its plain twin (the sizes, the size, slot and pad words and
+    the parent entries exact, the values within rounding) and against
+    chain_collapse on the same columns, whose kernel shares its
+    arithmetic: the rows of its outputs bit for bit where the two plans
+    cut the positions alike (the same P; a chain's sums are taken in the
+    order of the sub-ranges), else the ints bit for bit and the values
+    within rounding."""
+    rows = kernels.to_rows(values, sizes, slots)
+    S = values.shape[0]
+    pk, pp, pc = (None if parent is None else parent.clone()
+                  for _ in range(3))
+    k = kernels.chain_collapse_rows(rows, S, order, skey, thr, h, pk, base)
+    p = kernels.chain_collapse_rows_plain(rows, S, order, skey, thr, h, pp,
+                                          base)
+    c = kernels.chain_collapse(values, sizes, slots, order, skey, thr, h,
+                               None, pc, base, merged=False)
+    assert torch.equal(k[1], p[1]) and torch.equal(k[0][:, S:], p[0][:, S:])
+    torch.testing.assert_close(kernels.rows_values(k[0], S),
+                               kernels.rows_values(p[0], S), rtol=1e-5,
+                               atol=1e-6)
+    c_rows = kernels.to_rows(*c[:3])
+    assert torch.equal(k[1], c[1]) and torch.equal(k[0][:, S:], c_rows[:, S:])
+    n = sizes.shape[0]
+    if kernels.chain_plan(S, n, rows=True)["P"] == kernels.chain_plan(S, n)["P"]:
+        assert torch.equal(k[0], c_rows)
+    else:
+        torch.testing.assert_close(kernels.rows_values(k[0], S), c[0],
+                                   rtol=1e-5, atol=1e-6)
+    if parent is not None:
+        assert torch.equal(pk, pp) and torch.equal(pk, pc)
+    return k
+
+
+@pytest.mark.parametrize("with_parent", [True, False])
+@pytest.mark.parametrize("kind,s,n,thr",
+                         CHAIN_CASES + [("runs", 18, 70001, 0.9)])
+def test_chain_collapse_rows_matches_plain(dev, kind, s, n, thr,
+                                           with_parent):
+    """K3 on the row state: the cases of test_chain_collapse_matches_plain
+    (runs across the kernel's sub-ranges, whole sub-ranges with no head,
+    the 2^15 cut) and S = 18, whose rows of 20 words stage with no pad
+    piece, the input state a column slice."""
+    if kind == "random":
+        values, sizes, slots, order, skey = _random_input(dev, n)
+    else:
+        sv, ss, sl, skey = _runs_case(dev, s, n)
+        values, sizes, slots, order = _unsorted(sv, ss, sl, n + s, True)
+    parent = (torch.arange(n, dtype=torch.int32, device=dev) if with_parent
+              else None)
+    k = _rows_collapse_same(values, sizes, slots, order, skey, thr, 3, parent)
+    assert int((k[1] > 0).sum()) < int((sizes > 0).sum()) * 3 // 4
+
+
+@pytest.mark.parametrize("s", [20, 124])
+def test_chain_collapse_rows_folds_at_a_base(dev, s):
+    """The parent fold at a shard's slot base (slots from base), on the
+    row state: the same entries as the plain twin's and the column
+    kernel's."""
+    n, base = 70001, 3 * 70001
+    sv, ss, sl, skey = _runs_case(dev, s, n)
+    values, sizes, slots, order = _unsorted(sv, ss, sl, 7)
+    parent = torch.arange(n, dtype=torch.int32, device=dev) + base
+    _rows_collapse_same(values, sizes, slots + base, order, skey, 0.9, 3,
+                        parent, base)
+
+
+def test_chain_collapse_rows_refuses_bad_input(dev):
+    values, sizes, slots, order, skey = _random_input(dev, 4096)
+    rows = kernels.to_rows(values, sizes, slots)
+    for bad in ((rows, S + 4, order, skey), (rows[:, :S], S, order, skey),
+                (rows, S, order.long(), skey), (rows, S, order[:4000], skey),
+                (rows[::2], S, order[:2048], skey[:2048])):
+        with pytest.raises(ValueError):
+            kernels.chain_collapse_rows(*bad, 0.9, 3)
+
+
+@pytest.mark.parametrize("s,n", [(20, 1 << 16), (124, 1 << 15)])
+def test_row_session_equals_the_column_session(dev, s, n):
+    """A chain session on the card (its state as rows: one transpose into
+    rows, K1b and K3 on rows, the compaction's gather back) gives the [S,
+    M] loop's clustering byte for byte where the row and column K3 plans
+    cut the positions alike: the row kernels share the column kernels'
+    arithmetic. Its K2 launches: the entry and the gather."""
+    assert kernels.chain_plan(s, n, rows=True) == kernels.chain_plan(s, n)
+    counts, v = testdata.session_input(n, s, 5, dev)
+    thr = np.r_[0.95, 0.95 - 0.01 * np.arange(20)].astype(np.float32)
+    want, _ = testdata.column_session(counts, v, thr, 9)
+    kernels.reset_launches()
+    got = engine.cluster_counts(counts, v, thr, seed=9)
+    assert engine.LAST_SESSION["state_transposes"] == 2
+    assert (kernels.launches["to_rows"], kernels.launches["permute_rows"],
+            kernels.launches["permute_state"]) == (1, 1, 0)
+    for a, b in zip(got[:2] + (got[2].flat, got[2].offsets),
+                    want[:2] + (want[2].flat, want[2].offsets)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert 1 < len(got[1]) < n // 2
+
+
 def test_finalize_exact(dev):
     n = 1 << 15
     _, _, vt, sz = _state(n, dev)

@@ -102,22 +102,39 @@ def test_chain_plan_stages_whole_scratch_rows(S):
         assert 6 * (smem + 1024) <= kernels.SMEM_SM
 
 
-def test_chain_plan_follows_the_source():
-    """chain_plan's shared memory is csrc/chain_collapse.cu's
-    kl_chain_words, its expression evaluated at each plan."""
+def _c_conditional(expr: str, env: dict):
+    """A C expression ``cond ? a : b`` (each part a Python expression too)
+    evaluated in ``env``."""
     import re
 
+    cond, then, other = re.fullmatch(r"(.*) \? (.*) : (.*)", expr).groups()
+    return eval(then if eval(cond, env) else other, env)
+
+
+def test_chain_plan_follows_the_source():
+    """chain_plan's shared memory is csrc/chain_collapse.cu's
+    kl_chain_words, its expression evaluated at each plan, on columns and
+    on rows; the staged row's words are csrc/common.cuh's kl_stage_ld."""
+    import re
+
+    common = (build.CSRC / "common.cuh").read_text()
+    stage = re.search(r"kl_stage_ld\(int W\) \{\s+return (.*?);",
+                      common).group(1)
+    for W in (4, 8, 20, 24, 124, 128):
+        assert _c_conditional(stage, dict(W=W)) == kernels.stage_words(W)
     src = (build.CSRC / "chain_collapse.cu").read_text()
     body = re.search(r"kl_chain_words\(long long S, long long W,\s+long long "
                      r"P\) \{(.*?)\n\}", src, re.S).group(1)
     scan = re.search(r"scan = (.*?);", body).group(1)
     words = re.search(r"return (.*?);", body, re.S).group(1)
-    cond, then, other = re.fullmatch(r"(.*) \? (.*) : (.*)", scan).groups()
-    for S in (1, 3, 20, 100, 124, 254, 300, 1557):
-        plan = kernels.chain_plan(S, 1 << 20)
-        env = dict(S=S, W=plan["W"], P=plan["P"], nw=plan["P"] // 32)
-        env["scan"] = eval(then if eval(cond, env) else other, env)
-        assert 4 * eval(" ".join(words.split()), env) == plan["smem"], S
+    for S in (1, 3, 18, 20, 100, 124, 254, 300, 1557):
+        for rows in (False, True):
+            plan = kernels.chain_plan(S, 1 << 20, rows)
+            env = dict(S=S, W=plan["W"], P=plan["P"], nw=plan["P"] // 32,
+                       kl_stage_ld=kernels.stage_words)
+            env["scan"] = _c_conditional(scan, env)
+            assert (4 * eval(" ".join(words.split()), env)
+                    == plan["smem"]), (S, rows)
     cap = re.search(r"#define KL_CHAIN_MAX_T (\d+)", src).group(1)
     assert all(kernels.chain_plan(S, 1 << 20)["threads"] <= int(cap)
                for S in (1, 20, 124))

@@ -294,6 +294,59 @@ def test_chain_collapse_past_2_31_scratch_words(state):
 
 
 @pytest.mark.cuda
+def test_row_state_past_2_32_bytes(state):
+    """A chain session's row state at 10^8 x 18: rows of 20 words, 8 GB,
+    whose windows' rows lie past byte 2^32. K1b on rows gives K1b's keys
+    and projections on the columns bit for bit, all of them; K3 on rows
+    gives K3's sizes and slots on the columns bit for bit, the values
+    within rounding (the kernels share their arithmetic, but on rows of 20
+    words a block takes 512 positions, on the scratch's 24 256: a chain's
+    sums come in another order), and is held to its plain twin on the
+    windows
+    (sizes, the size, slot and pad words and the parent entries exact,
+    the values within rounding); K2's gather back to columns equals its
+    plain twin there."""
+    dev = state.values.device
+    rows = kernels.to_rows(state.values, state.sizes, state.slots)
+    W = kernels.row_words(S)
+    assert rows.shape == (CARD_M, W) == (CARD_M, 20)
+    planes = rng.draw_hyperplanes(11, 0, S).to(dev)
+    k = kernels.lsh_keys_rows(rows, state.sizes, planes, state.h)
+    c = kernels.lsh_keys(state.values, state.sizes, planes, state.h)
+    assert torch.equal(k[0], c[0]) and torch.equal(k[1], c[1])
+    del k, c
+    thr = float(_schedule()[0])
+    parent = torch.arange(CARD_M, dtype=torch.int32, device=dev)
+    out, osizes = kernels.chain_collapse_rows(rows, S, state.order,
+                                              state.skey, thr, state.h,
+                                              parent)
+    col = kernels.chain_collapse(state.values, state.sizes, state.slots,
+                                 state.order, state.skey, thr, state.h, None,
+                                 None, merged=False)
+    assert torch.equal(osizes, col[1]) and torch.equal(out[:, S + 1], col[2])
+    for a, b in zip(kernels.rows_values(out, S), col[0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    del col
+    for w in _windows():
+        o = state.order[w]
+        assert int(o.max()) * 4 * W >= 2**32
+        pp = torch.arange(CARD_M, dtype=torch.int32, device=dev)
+        p = kernels.chain_collapse_rows_plain(rows, S, o, state.skey[w], thr,
+                                              state.h, pp)
+        assert torch.equal(osizes[w], p[1])
+        assert torch.equal(out[w][:, S:], p[0][:, S:])
+        torch.testing.assert_close(kernels.rows_values(out[w], S),
+                                   kernels.rows_values(p[0], S), rtol=1e-5,
+                                   atol=1e-6)
+        sl = rows[o.long(), S + 1].long()
+        assert bool((p[0][:, S] == 0).any())   # a chain merged
+        assert torch.equal(parent[sl], pp[sl])
+        g = kernels.permute_rows(rows, S, o)
+        for a, b in zip(g, kernels.permute_rows_plain(rows, S, o)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_finalize_past_2_31_scratch_words(state):
     """K5 on 10^8 alive columns of its own (the identity forest: every row
     its cluster, so finalize's column scratch is 10^8 x 24 words),

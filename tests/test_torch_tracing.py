@@ -132,8 +132,8 @@ def test_profiler_off_opens_no_record_function(monkeypatch):
     session = engine.LAST_SESSION
     assert set(session) == {"device_seconds", "pull_seconds", "pull_bytes",
                             "pull_host_allocs", "planes_launches",
-                            "permute_launches", "sorted_keys", "programs",
-                            "clusters"}
+                            "permute_launches", "sorted_keys",
+                            "state_transposes", "programs", "clusters"}
     names = [p for p, _ in session["programs"]]
     assert names[0] == f"transform@{counts.shape[1]}"
     assert all(re.fullmatch(r"iter\[\d+\]@\d+", p) for p in names[1:-1])

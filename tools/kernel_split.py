@@ -32,8 +32,11 @@ sum of one exchange's chain_collapse and exchange_fold. ``chain`` times K2,
 the chain collapse and K9 at M x S (by default 2^24 x 124, the metahit124
 cells' shape; 100000000x18 is the kostic18 cell's) on a session's first
 iteration (fused in this tree, K2 then K3 in a parent tree), beside their
-plain versions and bounds, then K5 on the forest of a whole session of
-the cells' schedule at that shape. ``wrs`` times
+plain versions and bounds, in a tree with a chain session's row state also
+its launches (K2's transpose into the rows, K1b and K3 on them) at the
+engine's row width and at the scratch's sector-padded one where they
+differ, beside the column K1b and K3, then K5 on the forest of a whole
+session of the cells' schedule at that shape. ``wrs`` times
 wrs_verdicts (checked against its plain version: verdicts exact, tails
 within rtol 1e-5 / atol 1e-6) on testdata.wrs_rows at 2^20 x (10 + 10)
 and 2^20 x (50 + 50) (chip_smoke.py phase 3's rows), at 2^18 x (300 +
@@ -183,6 +186,105 @@ def _fused() -> bool:
     return "order" in inspect.signature(kernels.chain_collapse).parameters
 
 
+def _rows_at(W: int, vt, sz, sl, planes, h: int, order, skey, parent):
+    """The row state's three launches at a row of W words, through the C
+    entries (W = kernels.row_words(S) is what the engine runs; the
+    scratch's sector-padded W the other width): (to_rows, the keys and
+    projections, K3's rows and sizes, and a function of each that runs
+    it again)."""
+    S, M = vt.shape
+    dev = vt.device
+    move = kernels._move_plan(S, W, M, "rows")
+    rows = torch.empty((M, W), dtype=torch.int32, device=dev)
+    lp = kernels.lsh_plan(S, h, rows=True)
+    keys = torch.empty(M, dtype=torch.int32, device=dev)
+    proj = torch.empty(M, dtype=torch.float32, device=dev)
+    minmax = torch.empty(2, dtype=torch.int32, device=dev)
+    cp = (kernels.chain_plan(S, M, rows=True) if W == kernels.row_words(S)
+          else kernels.chain_plan(S, M))
+    if cp["W"] != W:
+        raise ValueError(f"no K3 plan at W = {W}")
+    status = torch.zeros(cp["blocks"] + 1, dtype=torch.int32, device=dev)
+    agg = torch.empty(cp["blocks"] * (3 + S), dtype=torch.int32, device=dev)
+    out = torch.empty_like(rows)
+    osz = torch.empty(M, dtype=torch.int32, device=dev)
+
+    def entry():
+        kernels._launch("kl_state_rows", vt.data_ptr(), vt.stride(0), S, M,
+                        sz.data_ptr(), sl.data_ptr(), W, move["cols"],
+                        move["smem"], rows.data_ptr())
+
+    def k1b():
+        kernels._launch("kl_lsh_keys_rows", rows.data_ptr(), W, S, M,
+                        planes.data_ptr(), sz.data_ptr(), h, lp["planes"],
+                        lp["smem"], kernels.free_bits(h), keys.data_ptr(),
+                        proj.data_ptr(), minmax.data_ptr())
+
+    def k3():
+        status.zero_()
+        kernels._launch("kl_chain_collapse_rows", rows.data_ptr(), W, S, M,
+                        order.data_ptr(), skey.data_ptr(), 0.95,
+                        kernels.free_bits(h), cp["P"], cp["threads"],
+                        cp["smem"], status.data_ptr(), agg.data_ptr(),
+                        out.data_ptr(), osz.data_ptr(), parent.data_ptr(), 0)
+
+    entry()
+    k1b()
+    k3()
+    torch.cuda.synchronize()
+    return rows, (keys, proj), (out, osz), (entry, k1b, k3)
+
+
+def measure_rows(vt, sz, sl, planes, h: int, order, skey) -> None:
+    """The row state's launches at a session's first iteration: K2's
+    transpose into the rows, K1b and K3 on them, at the engine's row width
+    and, where it differs (S = 18: 20 words against 24), at the scratch's
+    sector-padded width, each checked against the other and K1b against
+    the column K1b; beside the column K1b and K3 (its transpose too) and
+    the bounds of the functions (K1b 4 S M + 12 M bytes or 2 S (h + 1) M
+    operations, K3 8 S M + 24 M + 4 a dying slot)."""
+    S, M = vt.shape
+    widths = sorted({kernels.row_words(S), kernels.permute_plan(S, M)["W"]})
+    col_keys = kernels.lsh_keys(vt, sz, planes, h)
+    k1b_col = report("lsh_keys on columns (K1b)", M,
+                     lambda: kernels.lsh_keys(vt, sz, planes, h))
+    k3_col = report("chain_collapse on columns (K2's transpose + K3)", M,
+                    lambda: kernels.chain_collapse(vt, sz, sl, order, skey,
+                                                   0.95, h, None, sl.clone(),
+                                                   merged=False))
+    seen = None
+    bound = 1e3 / cs.HBM_BYTES_PER_S
+    for W in widths:
+        parent = sl.clone()
+        rows, keys, k3_out, (entry, k1b, k3) = _rows_at(
+            W, vt, sz, sl, planes, h, order, skey, parent)
+        same = (torch.equal(keys[0], col_keys[0])
+                and torch.equal(keys[1], col_keys[1]))
+        vals = kernels.rows_values(k3_out[0], S)
+        if seen is not None:
+            same = (same and torch.equal(k3_out[1], seen[0])
+                    and torch.equal(vals, seen[1]))
+        dying = int((k3_out[1] == 0).sum() - (sz == 0).sum())
+        t = [report(f"{what} at W = {W}", M, fn) for what, fn in (
+            ("to_rows (K2's transpose)", entry),
+            ("lsh_keys_rows (K1b on rows)", k1b),
+            ("chain_collapse_rows (K3 on rows)", k3))]
+        k1b_bound = max((4 * S * M + 12 * M) * bound,
+                        1e3 * 2 * S * (h + 1) * M / cs.F32_FLOPS)
+        cs.log(f"rows at {M} x {S}, W = {W} ({4 * W * M} bytes of rows, h = "
+               f"{h}, {dying} slots die): keys equal the column K1b's and "
+               f"K3 the other width's: {same}; to_rows {t[0]:.4f} ms, K1b "
+               f"{t[1]:.4f} (columns {k1b_col:.4f}, bound {k1b_bound:.4f}), "
+               f"K3 {t[2]:.4f} (columns with its transpose {k3_col:.4f}, "
+               f"bound {(8 * S * M + 24 * M + 4 * dying) * bound:.4f}); an "
+               f"iteration's K1b + K3 {t[1] + t[2]:.4f} against "
+               f"{k1b_col + k3_col:.4f} ms")
+        if seen is None:
+            seen = (k3_out[1], vals.clone())
+        del rows, keys, k3_out, vals
+        torch.cuda.empty_cache()
+
+
 def measure_chain(M: int, s: int = cs.CELL_S) -> None:
     """K2, K3 and K9 where a benchmark cell runs them first: a session's
     first iteration at M x s (testdata.session_input, seed 11; h of the
@@ -200,10 +302,12 @@ def measure_chain(M: int, s: int = cs.CELL_S) -> None:
     vt, sz = kernels.abundance_transform(counts, torch.from_numpy(v).to(dev))
     del counts
     h = engine._active_h_of(int((sz > 0).sum()))
-    key, _ = kernels.lsh_keys(vt, sz, rng.draw_hyperplanes(11, 0, s).to(dev),
-                              h)
+    planes = rng.draw_hyperplanes(11, 0, s).to(dev)
+    key, _ = kernels.lsh_keys(vt, sz, planes, h)
     skey, order = kernels.sort_keys(key, 31)
     sl = torch.arange(M, dtype=torch.int32, device=dev)
+    if hasattr(kernels, "chain_collapse_rows"):
+        measure_rows(vt, sz, sl, planes, h, order, skey)
     parent = sl.clone()
     k2_bytes = 8 * s * M + 20 * M
     k2 = report("permute_state (K2)", M,
